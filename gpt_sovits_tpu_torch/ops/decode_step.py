@@ -1,0 +1,516 @@
+"""S1 decode step: K1, the port of the Pallas kernel
+gpt_sovits_tpu/ops/pallas/decode_step.py `fused_decode_step`.
+
+One token step through all L post-LN layers for B <= 8 rows, with stacked
+weights in bf16 or W8A8 int8 and a K||V cache in bf16 or int8. On CUDA
+tensors the three kernels of ``csrc/decode_step.cu`` run the step
+(``proj``, ``decode_attn``, ``add_layernorm``; see the note at the top of
+that file for what bounds them); on CPU tensors each wrapper takes its plain
+PyTorch twin. ``fused_decode_step_plain`` runs the whole step on the twins
+on any device, which is what the kernels are held against.
+
+Layout (as in the JAX package): kv_cache (L, B, T, 2D) with K in [0, D) and
+V in [D, 2D); kv_scales (L, B, 2, T) f32 in int8-KV mode; mask (B, T) f32,
+1 = attendable, EXCLUDING the slot being written (the step attends to the
+new token's own K/V itself). The step updates kv_cache/kv_scales in place
+at ``write_idx`` (the JAX function returns new arrays; in place saves a copy
+of the cache per token) and returns them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+from gpt_sovits_tpu_torch.ops import build
+
+NEG = -1e30
+# launch geometry, as csrc/decode_step.cu defines it
+SPLIT = 64  # cache slots per decode_attn split block
+HEAD_DIM = 32  # the only head width decode_attn takes
+ATTN_PART = HEAD_DIM + 2  # per split: context, max, sum
+PROJ_TILE = 64  # output columns per proj block
+PROJ_ITER_ROWS = 128  # W rows a proj block reads per pass
+PROJ_TARGET_BLOCKS = 128  # about one proj block per SM (the H100 has 132)
+MAX_TILES = 1024  # tickets per stream: proj's column tiles, decode_attn's (row, head) pairs
+MAX_ROWS = 8
+
+# the kernels, in the order gsv_launch_counts reports their launches
+# (fused_decode_step: whole steps run by gsv_decode_step)
+KERNELS = ("proj", "decode_attn", "add_layernorm", "fused_decode_step")
+
+
+def launch_counts() -> dict:
+    """Launches of each CUDA kernel since the last reset, as the CUDA code
+    counts them at each launch. All zero while the library is not loaded."""
+    lib = build.loaded("decode_step")
+    if lib is None:
+        return dict.fromkeys(KERNELS, 0)
+    out = (ctypes.c_longlong * len(KERNELS))()
+    lib.gsv_launch_counts(out)
+    return dict(zip(KERNELS, out))
+
+
+def reset_launch_counts() -> None:
+    lib = build.loaded("decode_step")
+    if lib is not None:
+        lib.gsv_reset_launch_counts()
+
+
+# ---------------------------------------------------------------------------
+# weight / cache preparation (ports of the JAX helpers)
+# ---------------------------------------------------------------------------
+
+
+def _quantize_cols(w: torch.Tensor):
+    """(L, Din, Dout) f32 -> per-output-channel symmetric int8 + (L, 1, Dout)
+    f32 scales (decode_step.py:526)."""
+    w = w.float()
+    s = torch.clamp_min(w.abs().amax(dim=1, keepdim=True) / 127.0, 1e-12)
+    q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def stack_weights_from_params(state_dict: dict, num_layers: int, quant: str = "bf16") -> dict:
+    """Stacked per-layer weights from a T2SDecoder state dict (reference
+    names), as decode_step.py:539 builds them from the flax tree: matrices
+    (L, Din, Dout) in bf16, or int8 with (L, 1, Dout) scales; vectors
+    (L, 1, N) f32."""
+    if quant not in ("bf16", "int8"):
+        raise ValueError(f"weight quant {quant!r}: expected 'bf16' or 'int8'")
+    pre = [f"h.layers.{i}" for i in range(num_layers)]
+
+    def mats(name):
+        return torch.stack([state_dict[f"{p}.{name}"].float().t() for p in pre]).contiguous()
+
+    def vecs(name):
+        return torch.stack([state_dict[f"{p}.{name}"].float() for p in pre])[:, None].contiguous()
+
+    out = {
+        "bqkv": vecs("self_attn.in_proj_bias"), "bo": vecs("self_attn.out_proj.bias"),
+        "n1s": vecs("norm1.weight"), "n1b": vecs("norm1.bias"),
+        "n2s": vecs("norm2.weight"), "n2b": vecs("norm2.bias"),
+        "b1": vecs("linear1.bias"), "b2": vecs("linear2.bias"),
+    }
+    for key, name in (("wqkv", "self_attn.in_proj_weight"), ("wo", "self_attn.out_proj.weight"),
+                      ("fc1", "linear1.weight"), ("fc2", "linear2.weight")):
+        w = mats(name)
+        if quant == "int8":
+            out[key], out[f"{key}_s"] = _quantize_cols(w)
+        else:
+            out[key] = w.to(torch.bfloat16)
+    return out
+
+
+def quantize_kv_cache(kv_cache: torch.Tensor):
+    """(L, B, T, 2D) float K||V -> (int8 cache, (L, B, 2, T) f32 scales),
+    per-token symmetric for K and V separately (decode_step.py:334)."""
+    d = kv_cache.shape[-1] // 2
+    kf = kv_cache[..., :d].float()
+    vf = kv_cache[..., d:].float()
+    sk = torch.clamp_min(kf.abs().amax(-1) / 127.0, 1e-8)
+    sv = torch.clamp_min(vf.abs().amax(-1) / 127.0, 1e-8)
+    kq = torch.clamp(torch.round(kf / sk[..., None]), -127, 127)
+    vq = torch.clamp(torch.round(vf / sv[..., None]), -127, 127)
+    cache = torch.cat([kq, vq], dim=-1).to(torch.int8)
+    return cache, torch.stack([sk, sv], dim=2)
+
+
+# ---------------------------------------------------------------------------
+# plain twins of the three kernels
+# ---------------------------------------------------------------------------
+
+
+def proj_plain(x, w, bias, w_scale=None, relu: bool = False):
+    """y = x @ w + bias. bf16 weights: bf16 operands, f32 accumulation.
+    int8 weights: W8A8 with a per-row dynamic activation scale."""
+    if w.dtype == torch.int8:
+        xs = torch.clamp_min(x.abs().amax(-1, keepdim=True), 1e-6) * (1.0 / 127.0)
+        xq = torch.clamp(torch.round(x * torch.reciprocal(xs)), -127, 127)
+        # float64 holds every s8 x s8 sum of these widths exactly
+        acc = (xq.double() @ w.double()).float()
+        y = acc * xs * w_scale.reshape(1, -1)
+    else:
+        y = x.to(torch.bfloat16).float() @ w.float()
+    y = y + bias.reshape(1, -1)
+    return torch.relu(y) if relu else y
+
+
+def decode_attn_plain(qkv, kv, kv_scales, mask, n_valid: int, num_heads: int):
+    """Attention of each row's new query over the live prefix [0, n_valid)
+    of one layer's cache (B, T, 2D), masked by mask (B, T), plus its own
+    fresh K/V. qkv (B, 3D) f32 -> context (B, D) f32."""
+    b, d3 = qkv.shape
+    d = d3 // 3
+    h = num_heads
+    dh = d // h
+    scale = float(1.0 / np.sqrt(dh))
+    q = (qkv[:, :d] * scale).reshape(b, h, dh)
+    k_new = qkv[:, d : 2 * d].reshape(b, h, dh)
+    v_new = qkv[:, 2 * d :].reshape(b, h, dh)
+    live = kv[:, :n_valid]
+    keys = live[..., :d].reshape(b, n_valid, h, dh)
+    vals = live[..., d:].reshape(b, n_valid, h, dh)
+    attendable = (mask[:, :n_valid] > 0)[:, None, :]
+    int8 = kv.dtype == torch.int8
+    if int8:
+        qs = torch.clamp_min(q.abs().amax(-1), 1e-9) * (1.0 / 127.0)  # (B, H)
+        qi = torch.clamp(torch.round(q / qs[..., None]), -127, 127)
+        sc = torch.einsum("bhd,bthd->bht", qi.double(), keys.double()).float()
+        sc = sc * (qs[..., None] * kv_scales[:, 0, None, :n_valid])
+    else:
+        sc = torch.einsum("bhd,bthd->bht", q.to(torch.bfloat16).float(), keys.float())
+    sc = torch.where(attendable, sc, torch.full_like(sc, NEG))
+    if n_valid > 0:
+        m = sc.amax(-1)
+        p = torch.exp(sc - m[..., None])
+        s = p.sum(-1)
+        if int8:
+            pv = p * kv_scales[:, 1, None, :n_valid]
+            ps = torch.clamp_min(pv.amax(-1), 1e-9) * (1.0 / 127.0)
+            pq = torch.clamp(torch.round(pv / ps[..., None]), -127, 127)
+            ctx = torch.einsum("bht,bthd->bhd", pq.double(), vals.double()).float() * ps[..., None]
+        else:
+            ctx = torch.einsum("bht,bthd->bhd", p.to(torch.bfloat16).float(), vals.float())
+    else:
+        m = torch.full((b, h), NEG, device=qkv.device)
+        s = torch.zeros((b, h), device=qkv.device)
+        ctx = torch.zeros((b, h, dh), device=qkv.device)
+    sc_self = (q * k_new).sum(-1)
+    m_new = torch.maximum(m, sc_self)
+    alpha = torch.exp(m - m_new)
+    p_self = torch.exp(sc_self - m_new)
+    s_fin = s * alpha + p_self
+    ctx = (ctx * alpha[..., None] + p_self[..., None] * v_new) / s_fin[..., None]
+    return ctx.reshape(b, d)
+
+
+def add_layernorm_plain(x, y, scale, bias):
+    """LN(x + y) * scale + bias over the last axis, eps 1e-5."""
+    xa = x + y
+    mu = xa.mean(-1, keepdim=True)
+    var = ((xa - mu) ** 2).mean(-1, keepdim=True)
+    return (xa - mu) * torch.rsqrt(var + 1e-5) * scale.reshape(1, -1) + bias.reshape(1, -1)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers: CUDA tensors launch the kernel, CPU tensors take the twin
+# ---------------------------------------------------------------------------
+
+
+def _lib():
+    lib = build.load("decode_step")
+    if not getattr(lib, "_gsv_typed", False):
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.gsv_proj.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
+        lib.gsv_decode_attn.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P]
+        lib.gsv_add_layernorm.argtypes = [P, P, P, P, P, I, I, P]
+        PP, IP = ctypes.POINTER(P), ctypes.POINTER(I)
+        lib.gsv_decode_step.argtypes = [P, P, PP, PP, PP, P, P, P, P, P, P, P, P, P, P, P, P, I, IP, I, F,
+                                        I, I, I, I, I, I, I, I, I, P]
+        for fn in (lib.gsv_proj, lib.gsv_decode_attn, lib.gsv_add_layernorm, lib.gsv_decode_step):
+            fn.restype = ctypes.c_int
+        lib.gsv_launch_counts.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+        lib.gsv_launch_counts.restype = None
+        lib.gsv_reset_launch_counts.argtypes = []
+        lib.gsv_reset_launch_counts.restype = None
+        lib._gsv_typed = True
+    return lib
+
+
+def _check(name, t, dtype, shape=None, device=None):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor")
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: must be 16-byte aligned")
+
+
+def _raise(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
+
+
+def _stream(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _route(t):
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for device {t.device}")
+
+
+def _proj_splits(k: int, n: int) -> int:
+    """K splits of a proj launch: double them (each chunk keeping at least
+    one block pass of rows) until the grid has about one block per SM."""
+    tiles = n // PROJ_TILE
+    s = 1
+    while tiles * s < PROJ_TARGET_BLOCKS and k % (2 * s) == 0 and k // (2 * s) >= PROJ_ITER_ROWS:
+        s *= 2
+    return s
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(device, stream: int) -> int:
+    """The last-block tickets of proj and decode_attn for one stream: zeroed
+    once, and each launch leaves them zero again (so launches on one stream
+    may share them)."""
+    key = (device, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(MAX_TILES, dtype=torch.int32, device=device)
+    return _TICKETS[key].data_ptr()
+
+
+def _check_proj_dims(b: int, n: int):
+    if not 1 <= b <= MAX_ROWS:
+        raise ValueError(f"proj takes 1..{MAX_ROWS} rows, got {b}")
+    if n % PROJ_TILE or n // PROJ_TILE > MAX_TILES:
+        raise ValueError(f"proj needs an output width that is a multiple of {PROJ_TILE}, got {n}")
+
+
+def _check_attn_dims(b: int, d: int, num_heads: int):
+    if d % num_heads or d // num_heads != HEAD_DIM:
+        raise ValueError(f"decode_attn takes a head dim of {HEAD_DIM}")
+    if b * num_heads > MAX_TILES:
+        raise ValueError(f"decode_attn takes at most {MAX_TILES} (row, head) pairs")
+
+
+def _attn_splits(n_valid: int) -> int:
+    return max(1, -(-n_valid // SPLIT))
+
+
+def _attn_scale(d: int, num_heads: int) -> float:
+    return float(1.0 / np.sqrt(d // num_heads))
+
+
+def proj(x, w, bias, w_scale=None, relu: bool = False):
+    """Skinny GEMM (B <= 8 rows) with bias and optional ReLU; bf16 or W8A8."""
+    if not _route(x):
+        return proj_plain(x, w, bias, w_scale, relu)
+    b, k = x.shape
+    n = w.shape[-1]
+    dev = x.device
+    _check("x", x, torch.float32, (b, k), dev)
+    _check("w", w, (torch.bfloat16, torch.int8), (k, n), dev)
+    int8 = w.dtype == torch.int8
+    _check("bias", bias, torch.float32, None, dev)
+    if bias.numel() != n:
+        raise ValueError("bias: wrong size")
+    if int8:
+        if w_scale is None:
+            raise ValueError("int8 weights need w_scale")
+        _check("w_scale", w_scale, torch.float32, None, dev)
+        if w_scale.numel() != n:
+            raise ValueError("w_scale: wrong size")
+    _check_proj_dims(b, n)
+    y = torch.empty((b, n), dtype=torch.float32, device=dev)
+    part = torch.empty(_proj_splits(k, n) * b * n, dtype=torch.float32, device=dev)
+    stream = _stream(x)
+    rc = _lib().gsv_proj(
+        x.data_ptr(), w.data_ptr(), w_scale.data_ptr() if int8 else None, bias.data_ptr(), y.data_ptr(),
+        part.data_ptr(), _tickets(dev, stream), MAX_TILES, b, k, n, _proj_splits(k, n), int(int8), int(relu), stream,
+    )
+    _raise(rc, "proj")
+    return y
+
+
+def decode_attn(qkv, kv, kv_scales, mask, n_valid: int, num_heads: int):
+    """Flash-decoding attention of one layer, one launch (the last split
+    block of each (row, head) merges the splits)."""
+    if not _route(qkv):
+        return decode_attn_plain(qkv, kv, kv_scales, mask, n_valid, num_heads)
+    b, d3 = qkv.shape
+    d = d3 // 3
+    t = kv.shape[1]
+    dev = qkv.device
+    _check("qkv", qkv, torch.float32, (b, d3), dev)
+    _check("kv", kv, (torch.bfloat16, torch.int8), (b, t, 2 * d), dev)
+    _check("mask", mask, torch.float32, (b, t), dev)
+    int8 = kv.dtype == torch.int8
+    if int8:
+        _check("kv_scales", kv_scales, torch.float32, (b, 2, t), dev)
+    _check_attn_dims(b, d, num_heads)
+    if not 0 <= n_valid <= t:
+        raise ValueError(f"n_valid {n_valid} outside [0, {t}]")
+    part = torch.empty((b, num_heads, _attn_splits(n_valid), ATTN_PART), dtype=torch.float32, device=dev)
+    out = torch.empty((b, d), dtype=torch.float32, device=dev)
+    stream = _stream(qkv)
+    rc = _lib().gsv_decode_attn(
+        qkv.data_ptr(), kv.data_ptr(), kv_scales.data_ptr() if int8 else None, mask.data_ptr(), part.data_ptr(),
+        out.data_ptr(), _tickets(dev, stream), MAX_TILES, b, num_heads, d, t, int(n_valid), _attn_splits(n_valid),
+        _attn_scale(d, num_heads), int(int8), stream,
+    )
+    _raise(rc, "decode_attn")
+    return out
+
+
+def add_layernorm(x, y, scale, bias):
+    """LN(x + y) * scale + bias, one block per row."""
+    if not _route(x):
+        return add_layernorm_plain(x, y, scale, bias)
+    b, d = x.shape
+    dev = x.device
+    _check("x", x, torch.float32, (b, d), dev)
+    _check("y", y, torch.float32, (b, d), dev)
+    _check("scale", scale, torch.float32, None, dev)
+    _check("bias", bias, torch.float32, None, dev)
+    if scale.numel() != d or bias.numel() != d:
+        raise ValueError("scale/bias: wrong size")
+    out = torch.empty_like(x)
+    rc = _lib().gsv_add_layernorm(
+        x.data_ptr(), y.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, d, _stream(x)
+    )
+    _raise(rc, "add_layernorm")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the step
+# ---------------------------------------------------------------------------
+
+
+def _check_step(x, weights, kv_cache, mask, write_idx, kv_scales):
+    n_layers, b, t, d2 = kv_cache.shape
+    d = d2 // 2
+    if kv_cache.dtype == torch.int8 and kv_scales is None:
+        raise ValueError("int8 kv_cache requires kv_scales (L,B,2,T)")
+    if x.shape != (b, d):
+        raise ValueError(f"x: shape {tuple(x.shape)}, expected {(b, d)}")
+    if not 0 <= write_idx < t:
+        raise ValueError(f"write_idx {write_idx} outside the cache")
+
+
+def _write_new_kv(kv_cache, kv_scales, kv_new, write_idx):
+    """The new token's K||V (L, B, 2D) bf16 into the cache at write_idx,
+    quantized per token in int8-KV mode (the TPU wrapper did this in XLA
+    too, decode_step.py:487-520)."""
+    if kv_cache.dtype != torch.int8:
+        kv_cache[:, :, write_idx] = kv_new.to(kv_cache.dtype)
+        return kv_cache, None
+    d = kv_new.shape[-1] // 2
+    kf = kv_new[..., :d].float()
+    vf = kv_new[..., d:].float()
+    sk = torch.clamp_min(kf.abs().amax(-1) / 127.0, 1e-8)  # (L, B)
+    sv = torch.clamp_min(vf.abs().amax(-1) / 127.0, 1e-8)
+    kq = torch.clamp(torch.round(kf / sk[..., None]), -127, 127)
+    vq = torch.clamp(torch.round(vf / sv[..., None]), -127, 127)
+    kv_cache[:, :, write_idx] = torch.cat([kq, vq], dim=-1).to(torch.int8)
+    kv_scales[:, :, :, write_idx] = torch.stack([sk, sv], dim=2)
+    return kv_cache, kv_scales
+
+
+def _result(x, kv_cache, kv_scales):
+    return (x, kv_cache, kv_scales) if kv_cache.dtype == torch.int8 else (x, kv_cache)
+
+
+def _step_plain(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads):
+    _check_step(x, weights, kv_cache, mask, write_idx, kv_scales)
+    n_layers, b, _, d2 = kv_cache.shape
+    d = d2 // 2
+    int8_kv = kv_cache.dtype == torch.int8
+    quant = weights["wqkv"].dtype == torch.int8
+    sc = (lambda k, i: weights[f"{k}_s"][i]) if quant else (lambda k, i: None)
+    kv_new = torch.empty((n_layers, b, d2), dtype=torch.bfloat16, device=x.device)
+    for i in range(n_layers):
+        qkv = proj_plain(x, weights["wqkv"][i], weights["bqkv"][i], sc("wqkv", i))
+        kv_new[i] = qkv[:, d:]
+        ctx = decode_attn_plain(qkv, kv_cache[i], kv_scales[i] if int8_kv else None, mask, write_idx, num_heads)
+        a = proj_plain(ctx, weights["wo"][i], weights["bo"][i], sc("wo", i))
+        xn = add_layernorm_plain(x, a, weights["n1s"][i], weights["n1b"][i])
+        hdn = proj_plain(xn, weights["fc1"][i], weights["b1"][i], sc("fc1", i), relu=True)
+        y2 = proj_plain(hdn, weights["fc2"][i], weights["b2"][i], sc("fc2", i))
+        x = add_layernorm_plain(xn, y2, weights["n2s"][i], weights["n2b"][i])
+    # the new token's K/V go into the cache after all layers read it
+    return _result(x, *_write_new_kv(kv_cache, kv_scales, kv_new, write_idx))
+
+
+MATS = ("wqkv", "wo", "fc1", "fc2")  # the order gsv_decode_step takes them in
+VECS = ("bqkv", "bo", "n1s", "n1b", "n2s", "n2b", "b1", "b2")
+
+
+def _step_cuda(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads):
+    """The layer loop of _step_plain on the kernels, run by one host call
+    (gsv_decode_step) that makes the 7 launches of each layer: a loop of
+    168 launches in Python costs more host time than the kernels take."""
+    _check_step(x, weights, kv_cache, mask, write_idx, kv_scales)
+    n_layers, b, t, d2 = kv_cache.shape
+    d = d2 // 2
+    dev = x.device
+    quant = weights["wqkv"].dtype == torch.int8
+    int8_kv = kv_cache.dtype == torch.int8
+    f = weights["fc1"].shape[-1]
+    dims = dict(zip(MATS, ((d, 3 * d), (d, d), (d, f), (f, d))))
+    widths = dict(zip(VECS, (3 * d, d, d, d, d, d, f, d)))
+    _check("x", x, torch.float32, (b, d), dev)
+    _check("kv_cache", kv_cache, (torch.bfloat16, torch.int8), None, dev)
+    _check("mask", mask, torch.float32, (b, t), dev)
+    if int8_kv:
+        _check("kv_scales", kv_scales, torch.float32, (n_layers, b, 2, t), dev)
+    for key, (k_in, k_out) in dims.items():
+        _check(key, weights[key], torch.int8 if quant else torch.bfloat16, (n_layers, k_in, k_out), dev)
+        _check_proj_dims(b, k_out)
+        if quant:
+            _check(f"{key}_s", weights[f"{key}_s"], torch.float32, (n_layers, 1, k_out), dev)
+    for key, n in widths.items():
+        _check(key, weights[key], torch.float32, (n_layers, 1, n), dev)
+    _check_attn_dims(b, d, num_heads)
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    qkv = torch.empty((n_layers, b, 3 * d), **f32)
+    h, ctx, a, xn, y2 = (torch.empty((b, d), **f32) for _ in range(5))
+    hdn = torch.empty((b, f), **f32)
+    splits = [_proj_splits(k, n) for k, n in dims.values()]
+    part = torch.empty(max(s * b * n for s, (_, n) in zip(splits, dims.values())), **f32)
+    apart = torch.empty((b, num_heads, _attn_splits(write_idx), ATTN_PART), **f32)
+    ptrs = lambda keys: (ctypes.c_void_p * len(keys))(*(weights[k].data_ptr() for k in keys))  # noqa: E731
+    stream = _stream(x)
+    rc = _lib().gsv_decode_step(
+        x.data_ptr(), h.data_ptr(), ptrs(MATS), ptrs([f"{k}_s" for k in MATS]) if quant else None, ptrs(VECS),
+        kv_cache.data_ptr(), kv_scales.data_ptr() if int8_kv else None, mask.data_ptr(),
+        *(z.data_ptr() for z in (qkv, ctx, a, xn, hdn, y2, part, apart)), _tickets(dev, stream), MAX_TILES,
+        (ctypes.c_int * 4)(*splits), _attn_splits(write_idx), _attn_scale(d, num_heads),
+        n_layers, b, d, f, num_heads, t, write_idx, int(quant), int(int8_kv), stream,
+    )
+    _raise(rc, "decode_step")
+    return _result(h, *_write_new_kv(kv_cache, kv_scales, qkv[:, :, d:].to(torch.bfloat16), write_idx))
+
+
+def fused_decode_step(x, weights, kv_cache, mask, write_idx: int, kv_scales=None, *, num_heads: int = 16):
+    """Returns (hidden (B, D) f32, kv_cache) -- plus kv_scales in int8-KV
+    mode -- with the new K||V written at write_idx. Weights as built by
+    `stack_weights_from_params`. CUDA tensors run the kernels; CPU tensors
+    run the plain twins."""
+    if _route(x):
+        return _step_cuda(x, weights, kv_cache, mask, int(write_idx), kv_scales, num_heads)
+    return _step_plain(x, weights, kv_cache, mask, int(write_idx), kv_scales, num_heads)
+
+
+def fused_decode_step_plain(x, weights, kv_cache, mask, write_idx: int, kv_scales=None, *, num_heads: int = 16):
+    """The same function on the plain twins, on any device."""
+    return _step_plain(x, weights, kv_cache, mask, int(write_idx), kv_scales, num_heads)
+
+
+def step_bytes(weights: dict, kv_cache: torch.Tensor, n_valid: int) -> int:
+    """Bytes the step must move at least: every weight once, the live KV
+    prefix (and its scales) once, the new K/V written once."""
+    wb = sum(v.numel() * v.element_size() for v in weights.values())
+    n_layers, b, _, d2 = kv_cache.shape
+    kvb = n_layers * b * (n_valid + 1) * d2 * kv_cache.element_size()
+    if kv_cache.dtype == torch.int8:
+        kvb += n_layers * b * 2 * (n_valid + 1) * 4
+    return wb + kvb + math.prod((b, d2 // 2)) * 4 * 2

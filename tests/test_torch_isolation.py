@@ -1,0 +1,56 @@
+"""The PyTorch port and chip_smoke.py stand alone: they import with jax and
+flax blocked, and no file of theirs imports jax, flax or the JAX package."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "gpt_sovits_tpu_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+BANNED = ("jax", "jaxlib", "flax", "gpt_sovits_tpu")
+
+_BLOCKER = """
+import importlib.abc, sys
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {banned!r}:
+            raise ImportError("blocked: " + name)
+        return None
+sys.meta_path.insert(0, _Block())
+import importlib, pkgutil
+import gpt_sovits_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(gpt_sovits_tpu_torch.__path__, "gpt_sovits_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke
+assert not any(k.split(".")[0] in {banned!r} for k in sys.modules), [k for k in sys.modules if k.startswith(("jax", "flax"))]
+print("OK", len(mods))
+"""
+
+
+def test_imports_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    code = _BLOCKER.format(banned={"jax", "jaxlib", "flax", "gpt_sovits_tpu"})
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.startswith("OK")
+    assert int(res.stdout.split()[1]) >= 15  # every module of the slice was imported
+
+
+def test_no_banned_imports_in_source():
+    assert len(FILES) > 15
+    for path in FILES:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for n in names:
+                assert n.split(".")[0] not in BANNED, f"{path}: imports {n}"
+        assert "gpt_sovits_tpu." not in path.read_text(), f"{path} names the JAX package"
