@@ -9,10 +9,17 @@ Phases: device, build, kernels (K1's kernels at L=24, D=512, H=16, F=2048,
 T_pad=1024, a live prefix of 745, B in {1, 8}, bf16 and int8/int8;
 decode_attn also on a peaked softmax that a masking or fresh-K/V fault
 moves far past its bar), widths (the whole step at B = 2..7 in both modes,
-held only), path (set_ref_audio + several `run` requests with random
-full-width weights made from --seed, launch counts read from the CUDA code),
-teacher (a greedy S1 trajectory through the kernels vs the plain twin),
-then the `kernels` summary line, the card's name and power limit, and last
+held only), path (v2ProPlus: set_ref_audio + several `run` requests with
+random full-width weights made from --seed, launch counts read from the CUDA
+code), teacher (a greedy S1 trajectory through the kernels vs the plain
+twin); then for v4: kernels (K2, K3, K5 at dim 1024, 16 x 64 heads, ff 2048,
+T=1024 with 1000 real frames, B in {1, 4}, on inputs where a mask or rotary
+fault shows), path_v4 (set_ref_audio with a transcript + two `run` requests
+through S1, the int8 DiT CFM and the 48 kHz vocoder, one of them a
+multi-chunk CFM batch; launch counts from the CUDA code equal the per-call
+counts times the CFM calls), cfm_teacher (one full-width CFM chunk through
+the kernels and through the twins, and its profile); then the `kernels`
+summary line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Bounds use the H100 SXM's
 published peaks (3.35 TB/s; 989 TFLOP/s bf16, 1979 TOP/s int8, 67 TFLOP/s
 f32), with the card's power limit printed beside them.
@@ -389,7 +396,8 @@ REQUESTS = [
 ]
 
 
-def path_phase(pipe, seed: int) -> list[dict]:
+def path_phase(pipe, seed: int) -> dict:
+    """The v2ProPlus requests; returns K1's launch counts over them."""
     t0 = time.perf_counter()
     pipe.set_ref_audio(reference_wav(seed), sr=32000)
     torch.cuda.synchronize()
@@ -398,7 +406,7 @@ def path_phase(pipe, seed: int) -> list[dict]:
     hop_up = int(np.prod(pipe.s2.cfg.upsample_rates))
     sr = pipe.mel_cfg.sampling_rate
     out = []
-    ds.reset_launch_counts()
+    reset_all_launch_counts()
     for i, text in enumerate(REQUESTS):
         t0 = time.perf_counter()
         sr_out, audio = pipe.run(text, "en", seed=seed + i, max_sec=MAX_SEC)
@@ -414,7 +422,7 @@ def path_phase(pipe, seed: int) -> list[dict]:
         emit(rec)
         out.append(rec)
     assert any(r["segments"] > 1 for r in out), "no request ran a batch of several segments"
-    return out
+    return ds.launch_counts()
 
 
 def teacher_phase(pipe, steps: int = 96) -> float:
@@ -458,6 +466,275 @@ def teacher_phase(pipe, steps: int = 96) -> float:
     return float(np.mean(agree))
 
 
+# ---------------------------------------------------------------------------
+# v4: the int8 DiT kernels K2, K3, K5 (csrc/qmatmul.cu, csrc/qflash.cu)
+# ---------------------------------------------------------------------------
+
+V4_DIM, V4_HEADS, V4_DH, V4_FF = 1024, 16, 64, 2048
+V4_T, V4_REAL = 1024, 1000  # one CFM chunk: T padded to 1024, 1000 real frames
+V4_SRC = {"qdense_int8": "gpt_sovits_tpu_torch/csrc/qmatmul.cu", "qkv_rope_int8": "gpt_sovits_tpu_torch/csrc/qmatmul.cu",
+          "flash_attn_int8": "gpt_sovits_tpu_torch/csrc/qflash.cu"}
+V4_REPLACES = {"qdense_int8": "gpt_sovits_tpu/ops/pallas/qmatmul.py:86",
+               "qkv_rope_int8": "gpt_sovits_tpu/ops/pallas/qmatmul.py:234",
+               "flash_attn_int8": "gpt_sovits_tpu/ops/pallas/qflash.py:94"}
+V4_BAR = 2e-2  # max abs error within 2% of the output's max (one int8 code or bf16 ulp moves an element far less)
+
+
+def _qweight(n: int, k: int, g: torch.Generator):
+    """Random (N, K) weights quantized per output channel, as
+    quantize_dit_params does: int8 codes, f32 scales, f32 biases."""
+    dev = torch.device("cuda")
+    w = torch.randn((n, k), generator=g, device=dev) / np.sqrt(k)
+    s = torch.clamp_min(w.abs().amax(1) / 127.0, 1e-12)
+    return (torch.clamp(torch.round(w / s[:, None]), -127, 127).to(torch.int8), s,
+            (0.1 * torch.randn(n, generator=g, device=dev)).contiguous())
+
+
+def _held(name: str, got, ref) -> dict:
+    got, ref = got.float(), ref.float()
+    e, top = float((got - ref).abs().max()), float(ref.abs().max())
+    out = {"max_abs_err": e, "out_max": top, "rel_err": rel_err(got, ref)}
+    assert e <= V4_BAR * top, f"{name} disagrees with its twin: {out}"
+    return out
+
+
+def _mm_bytes(m: int, k: int, n: int) -> int:
+    """x (bf16) read, int8 W and its f32 scales and biases read, bf16 out written."""
+    return m * k * 2 + n * k + n * 8 + m * n * 2
+
+
+def v4_kernel_phase(b: int, seed: int) -> dict:
+    """K2 (three DiT variants), K3 and K5 at v4 shapes (dim 1024, 16 x 64
+    heads, ff 2048, T 1024 with 1000 real frames), B rows; each held against
+    its twin on the card, on inputs where a fault shows: K2's masked variant
+    has pad rows 50x larger (a copy that drops the mask moves them far past
+    the bar), K3 runs positions 0..1023 (rotating every head, or none, moves
+    the output by about its size), K5 has keys aligned with the query planted
+    in the pad region with large V (ignoring the mask moves every row)."""
+    from gpt_sovits_tpu_torch.ops import qflash as qf
+    from gpt_sovits_tpu_torch.ops import qmatmul as qm
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 10)
+    m, t, d, f = b * V4_T, V4_T, V4_DIM, V4_FF
+    bf = torch.bfloat16
+    mask = torch.zeros((b, t), device=dev)
+    mask[:, :V4_REAL] = 1.0
+    x = torch.randn((b, t, d), generator=g, device=dev)
+    x[:, V4_REAL:] *= 50.0
+    x = x.to(bf).contiguous()
+    h1 = torch.randn((b, t, f), generator=g, device=dev).to(bf)
+    res = torch.randn((b, t, d), generator=g, device=dev).to(bf)
+    gate = (0.5 * torch.randn((b, d), generator=g, device=dev)).contiguous()
+    sc, sh = ((0.3 * torch.randn((b, d), generator=g, device=dev)).contiguous() for _ in range(2))
+    w_out, w_ff1, w_ff2 = _qweight(d, d, g), _qweight(f, d, g), _qweight(d, f, g)
+    wqkv = [_qweight(d, d, g) for _ in range(3)]
+    rows = {}
+
+    # K2: the attention output (mask + gated residual), ff1 (AdaLN + gelu), ff2 (gated residual)
+    variants = {
+        "to_out": (lambda fn: fn(x, *w_out, res_gate=(res, gate), mask=mask), (m, d, d), 2 * m * d),
+        "ff1": (lambda fn: fn(x, *w_ff1, ln_mod=(sc, sh), act="gelu"), (m, d, f), 2 * b * d * 4),
+        "ff2": (lambda fn: fn(h1, *w_ff2, res_gate=(res, gate)), (m, f, d), 2 * m * d + b * d * 4),
+    }
+    held, nbytes, ops, lib_in = {}, 0, 0, []
+    for name, (call, (mm, kk, nn), extra) in variants.items():
+        got, ref = call(qm.qdense_int8), call(qm.qdense_int8_plain)
+        held[name] = _held(f"qdense_int8 {name}", got, ref)
+        if name == "to_out":  # the pad rows carry the residual alone
+            assert float((got[:, V4_REAL:].float() - res[:, V4_REAL:].float()).abs().max()) <= 1e-2, "mask ignored"
+        nbytes += _mm_bytes(mm, kk, nn) + extra
+        ops += 2 * mm * kk * nn
+        lib_in.append((torch.randint(-127, 128, (mm, kk), generator=g, device=dev, dtype=torch.int8),
+                       [w_out, w_ff1, w_ff2][len(lib_in)][0]))
+    block = lambda fn: [c(fn) for c, _, _ in variants.values()]  # noqa: E731
+    bound, by = bound_ms(nbytes, ops, "int8")
+    rows["qdense_int8"] = dict(
+        max_abs_err=max(h["max_abs_err"] for h in held.values()), held=held,
+        **timings("", lambda i: block(qm.qdense_int8), 20), **timings("plain_", lambda i: block(qm.qdense_int8_plain), 3),
+        **timings("library_", lambda i: [torch._int_mm(a, w.t()) for a, w in lib_in], 20),
+        bound_ms=bound, bound_by=by, config=f"B={b}: to_out + ff1 + ff2 of one DiT block (3 launches)")
+
+    # K3: q, k, v with the AdaLN prologue and rotary on head 0
+    xq3 = torch.randn((b, t, d), generator=g, device=dev).to(bf)
+
+    def qkv(fn):
+        return fn(xq3, *(w[0] for w in wqkv), *(w[1] for w in wqkv), *(w[2] for w in wqkv), ln_mod=(sc, sh),
+                  dim_head=V4_DH)
+
+    got, ref = qkv(qm.qkv_rope_int8), qkv(qm.qkv_rope_int8_plain)
+    held = {nm: _held(f"qkv_rope_int8 {nm}", a, r) for nm, a, r in zip("qkv", got, ref)}
+    # what a rotation fault would cost at these positions: head 0 unrotated vs rotated
+    cos, sin = qm.rope_table(t, V4_DH, dev)
+    q0 = ref[0][:, 0].float()
+    unrot = torch.stack([q0[..., 0::2] * cos + q0[..., 1::2] * sin, q0[..., 1::2] * cos - q0[..., 0::2] * sin], -1)
+    held["rotation_shift"] = float((unrot.reshape(q0.shape) - q0).abs().max())
+    assert held["rotation_shift"] > 10 * V4_BAR * held["q"]["out_max"], held
+    xq_lib = torch.randint(-127, 128, (m, d), generator=g, device=dev, dtype=torch.int8)
+    bound, by = bound_ms(m * d * 2 + 3 * (d * d + 8 * d) + 3 * m * d * 2 + 2 * b * d * 4, 3 * 2 * m * d * d, "int8")
+    rows["qkv_rope_int8"] = dict(
+        max_abs_err=max(h["max_abs_err"] for h in held.values() if isinstance(h, dict)), held=held,
+        **timings("", lambda i: qkv(qm.qkv_rope_int8), 20), **timings("plain_", lambda i: qkv(qm.qkv_rope_int8_plain), 3),
+        **timings("library_", lambda i: [torch._int_mm(xq_lib, w[0].t()) for w in wqkv], 20),
+        bound_ms=bound, bound_by=by, config=f"B={b}, T={t}")
+
+    # K5: random and peaked, keys planted in the pad region
+    sm = 1.0 / np.sqrt(V4_DH)
+    q, k, v = (torch.randn((b, V4_HEADS, t, V4_DH), generator=g, device=dev) for _ in range(3))
+    qp = q.clone()
+    u = q[:, :, :1] / q[:, :, :1].norm(dim=-1, keepdim=True)
+    qp[:] = 6.0 * u
+    kp, vp = k.clone(), v.clone()
+    kp[:, :, V4_REAL:] = 12.0 * u
+    vp[:, :, V4_REAL:] = 6.0
+    for tt in (100, 400, 900):  # three live keys that carry the peaked rows' weight
+        kp[:, :, tt] = 10.0 * u[:, :, 0]
+    held = {}
+    cases = {"random": (q, k, v), "peaked": (qp, kp, vp)}
+    for case, (a, bk, c) in cases.items():
+        a, bk, c = (z.to(bf).contiguous() for z in (a, bk, c))
+        got = qf.flash_attn_int8(a, bk, c, mask, sm_scale=sm)
+        ref = qf.flash_attn_int8_plain(a, bk, c, mask, sm_scale=sm)
+        held[case] = _held(f"flash_attn_int8 {case}", got[:, :V4_REAL], ref[:, :V4_REAL])
+        if case == "peaked":  # what ignoring the mask would cost
+            nomask = qf.flash_attn_int8_plain(a, bk, c, None, sm_scale=sm)
+            held["mask_shift"] = float((nomask[:, :V4_REAL].float() - ref[:, :V4_REAL].float()).abs().max())
+            assert held["mask_shift"] > 10 * V4_BAR * held[case]["out_max"], held
+    qb, kb, vb = (z.to(bf).contiguous() for z in (q, k, v))
+    attn_mask = (mask > 0)[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qk_ops = 2 * b * V4_HEADS * t * t * V4_DH
+    bound = max(qk_ops / PEAK_OPS["bf16"] * 1e3 + qk_ops / PEAK_OPS["int8"] * 1e3,
+                (4 * b * V4_HEADS * t * V4_DH * 2 + b * t * 4) / HBM_BYTES_S * 1e3)
+    rows["flash_attn_int8"] = dict(
+        max_abs_err=max(h["max_abs_err"] for h in held.values() if isinstance(h, dict)), held=held,
+        **timings("", lambda i: qf.flash_attn_int8(qb, kb, vb, mask, sm_scale=sm), 20),
+        **timings("plain_", lambda i: qf.flash_attn_int8_plain(qb, kb, vb, mask, sm_scale=sm), 3),
+        **timings("library_", lambda i: sdpa(qb, kb, vb, attn_mask=attn_mask), 20),
+        bound_ms=bound, bound_by="operations", config=f"B={b}, H=16, T={t}, {V4_REAL} real keys")
+    return rows
+
+
+V4_MAX_SEC = 8  # S1 cap per segment on the v4 path: 200 tokens, 800 mel frames; keeps the CFM bucket <= 6
+V4_REQUESTS = [
+    "Hello there, this is a short test of the flow matching path.",
+    "The first sentence is short. The second one is a little longer than the first! "
+    "And a third sentence closes the request.",
+]
+V4_PER_CFM_CALL = {"qkv_rope_int8": 22 * 32, "flash_attn_int8": 22 * 32, "qdense_int8": 3 * 22 * 32,
+                   "row_quant": 4 * 22 * 32, "v_quant": 22 * 32}
+
+
+def all_launch_counts() -> dict:
+    from gpt_sovits_tpu_torch.ops import qflash as qf
+    from gpt_sovits_tpu_torch.ops import qmatmul as qm
+
+    return {**ds.launch_counts(), **qm.launch_counts(), **qf.launch_counts()}
+
+
+def reset_all_launch_counts() -> None:
+    from gpt_sovits_tpu_torch.ops import qflash as qf
+    from gpt_sovits_tpu_torch.ops import qmatmul as qm
+
+    for mod in (ds, qm, qf):
+        mod.reset_launch_counts()
+
+
+def build_v4_pipeline(seed: int):
+    """v4 at full width, random weights from the seed: S1Config(), the v4
+    SynthesizerTrnV3 (DiT 22 x 1024, 16 heads), the x480 vocoder, CNHuBERT."""
+    from gpt_sovits_tpu_torch.infer.pipeline import V3Bundle, serving_t_chunk
+    from gpt_sovits_tpu_torch.models.v3 import SynthesizerTrnV3
+    from gpt_sovits_tpu_torch.models.vits import Generator
+    from gpt_sovits_tpu_torch.utils.config import MEL_V4, vocoder_v4_config
+
+    torch.manual_seed(seed)
+    cfg = s2_config_for_version("v4")
+    bundle = V3Bundle(
+        model=SynthesizerTrnV3(cfg),
+        vocoder=Generator(vocoder_v4_config(), in_channels=cfg.cfm_mel_channels, use_post_bias=True, conditioned=False),
+        mel_cfg=MEL_V4, t_ref=500, t_chunk=serving_t_chunk("v4", "cuda"), out_sr=48000, sample_steps=32,
+    )
+    return TTSPipeline(s1_model=T2SDecoder(S1Config()), s2_model=None, hubert_model=HubertEncoder(), v3_bundle=bundle)
+
+
+def path_v4_phase(pipe, seed: int) -> list[dict]:
+    t0 = time.perf_counter()
+    pipe.set_ref_audio(reference_wav(seed), sr=32000, ref_text="This is the reference voice speaking clearly.")
+    pipe._v3_ref_features()
+    torch.cuda.synchronize()
+    emit({"phase": "path_v4", "event": "set_ref_audio", "s": time.perf_counter() - t0,
+          "prompt_tokens": int(len(pipe.ref.prompt_semantic)), "dit_quant": pipe.dit_quant, "t_chunk": pipe.v3.t_chunk})
+    sr = pipe.v3.out_sr
+    up = sr * pipe.v3.mel_cfg.hop_size // pipe.v3.mel_cfg.sampling_rate
+    out = []
+    for i, text in enumerate(V4_REQUESTS):
+        t0 = time.perf_counter()
+        sr_out, audio = pipe.run(text, "en", seed=seed + i, max_sec=V4_MAX_SEC)
+        wall = time.perf_counter() - t0
+        assert sr_out == 48000 and audio.dtype == np.int16, (sr_out, audio.dtype)
+        n_seg = len(pipe.last_tokens)
+        expect = sum(pipe._mel_len_for(n, 1.0) * up for n in pipe.last_tokens.values())
+        expect += (n_seg - 1) * int(sr * pipe.cfg.fragment_interval)
+        assert audio.shape == (expect,), (audio.shape, expect)
+        assert np.isfinite(audio.astype(np.float32)).all()
+        rec = {"phase": "path_v4", "request": i, "segments": n_seg, "tokens": list(pipe.last_tokens.values()),
+               "cfm_batch": [list(b) for b in pipe.last_cfm_batch], "audio_s": len(audio) / sr, "wall_s": wall,
+               "rtf": wall / (len(audio) / sr), "phases_s": pipe.last_timing}
+        emit(rec)
+        out.append(rec)
+    assert any(b[0] > 1 for r in out for b in r["cfm_batch"]), "no request ran a CFM batch of several chunks"
+    assert all(b[1] <= 6 for r in out for b in r["cfm_batch"]), "a CFM bucket above 6"
+    return out
+
+
+class twins_in_dit:
+    """Within the block, the DiT's int8 chain runs the plain twins (a
+    comparison run: no kernel is launched)."""
+
+    def __enter__(self):
+        from gpt_sovits_tpu_torch.models import dit
+        from gpt_sovits_tpu_torch.ops import qflash as qf
+        from gpt_sovits_tpu_torch.ops import qmatmul as qm
+
+        self.saved = (dit.qdense_int8, dit.qkv_rope_int8, dit.flash_attn_int8)
+        dit.qdense_int8, dit.qkv_rope_int8, dit.flash_attn_int8 = (
+            qm.qdense_int8_plain, qm.qkv_rope_int8_plain, qf.flash_attn_int8_plain)
+
+    def __exit__(self, *exc):
+        from gpt_sovits_tpu_torch.models import dit
+
+        dit.qdense_int8, dit.qkv_rope_int8, dit.flash_attn_int8 = self.saved
+
+
+def cfm_teacher_phase(pipe, seed: int) -> dict:
+    """One full-width CFM chunk (B=1, T=1024 with 1000 real frames, 32
+    steps, the same noise) through the kernels and through the twins on the
+    card: relative L1 of the mel < 0.02 (the JAX package's int8 bar,
+    tests/test_dit_quant.py). Also one chunk under the profiler: device time
+    by kernel and the idle share of the call."""
+    from gpt_sovits_tpu_torch.models.v3 import cfm_inference
+
+    dev = pipe.device
+    g = torch.Generator(device=dev).manual_seed(seed + 20)
+    _, _, mel2, t_min = pipe._v3_ref_features()
+    dcfg = pipe._dit.cfg
+    mu = (0.5 * torch.randn((1, V4_T, dcfg.text_dim), generator=g, device=dev)).to(pipe._cfm_dtype)
+    noise = torch.randn((1, V4_T, dcfg.mel_dim), generator=g, device=dev)
+    lens = torch.tensor([V4_REAL], device=dev)
+
+    def cfm(_=0):
+        return cfm_inference(pipe._dit, mu, lens, mel2, noise=noise, n_steps=32, pad_t_to=pipe.pad_t_to).float()
+
+    got = cfm()
+    with twins_in_dit():
+        ref = cfm()
+    rl1 = float((got[:, t_min:V4_REAL] - ref[:, t_min:V4_REAL]).abs().mean() / ref[:, t_min:V4_REAL].abs().mean())
+    assert np.isfinite(rl1) and rl1 < 0.02, rl1
+    prof = profile_steps(cfm, steps=2)
+    return {"rel_l1": rl1, "mel_abs_mean": float(ref[:, t_min:V4_REAL].abs().mean()), "cfm_call": prof}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -488,13 +765,33 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     pipe = build_pipeline(args.seed)
-    path_phase(pipe, args.seed)
-    launches = ds.launch_counts()  # counted from 0 just before the path's requests
+    launches = path_phase(pipe, args.seed)  # counted from 0 just before the path's requests
     assert all(n > 0 for n in launches.values()), launches
     agree = teacher_phase(pipe)
     emit({"phase": "teacher", "greedy_agreement": agree})
     assert agree >= 0.9, agree
     emit({"phase": "path", "launches": launches, "max_memory_GB": torch.cuda.max_memory_allocated() / 1e9})
+
+    del pipe
+    torch.cuda.empty_cache()
+
+    # v4: the int8 DiT kernels at v4 shapes, then the full-width v4 path
+    v4_rows = {}
+    for b in (1, 4):
+        for name, r in v4_kernel_phase(b, args.seed).items():
+            emit({"phase": "kernels", "kernel": name, "B": b, **r})
+            v4_rows[(name, b)] = r
+    pipe4 = build_v4_pipeline(args.seed)
+    reset_all_launch_counts()
+    reqs = path_v4_phase(pipe4, args.seed)
+    launches4 = all_launch_counts()  # counted from 0 just before the v4 requests
+    n_cfm = sum(len(r["cfm_batch"]) for r in reqs)
+    for name, per_call in V4_PER_CFM_CALL.items():
+        assert launches4[name] == per_call * n_cfm, (name, launches4[name], per_call, n_cfm)
+    assert launches4["fused_decode_step"] > 0, launches4
+    emit({"phase": "path_v4", "launches": launches4, "cfm_calls": n_cfm,
+          "max_memory_GB": torch.cuda.max_memory_allocated() / 1e9})
+    emit({"phase": "cfm_teacher", **cfm_teacher_phase(pipe4, args.seed)})
 
     main_rows = table[("int8", 1)]
     kernels = []
@@ -506,6 +803,16 @@ def main(argv=None) -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "timer": r["timer"],
             "config": "int8 weights + int8 KV, B=1, live 745 of 1024; proj/add_layernorm/decode_attn per layer, "
                       "fused_decode_step per 24-layer step",
+        })
+    helpers = {"qdense_int8": "row_quant", "qkv_rope_int8": "row_quant", "flash_attn_int8": "v_quant"}
+    for name in ("qdense_int8", "qkv_rope_int8", "flash_attn_int8"):
+        r = v4_rows[(name, 4)]
+        kernels.append({
+            "name": name, "route": "cuda", "source": V4_SRC[name], "replaces": V4_REPLACES[name],
+            "launches": launches4[name], "helper_launches": {helpers[name]: launches4[helpers[name]]},
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "timer": r["timer"],
+            "config": r["config"] + "; v4 DiT widths, ms includes the wrapper's " + helpers[name] + " launch",
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -72,7 +72,9 @@ class TextEncoder(nn.Module):
         self.proj = Conv1d(h, 2 * c.inter_channels, 1)
 
     def forward(self, quantized, y_mask, text, text_mask, ge, speed: float = 1.0):
-        """quantized (B,768,T), y_mask (B,1,T), text (B,Tt), ge (B,C,1)."""
+        """quantized (B,768,T), y_mask (B,1,T), text (B,Tt), ge (B,C,1) ->
+        (m_p (B,inter,T'), y_mask (B,1,T'), hidden (B,hidden,T'): the
+        encoder2 output the v3/v4 bridge reads)."""
         y = self.ssl_proj(quantized * y_mask) * y_mask
         y = self.encoder_ssl(y, y_mask)
         t = self.text_embedding(text).transpose(1, 2)
@@ -87,18 +89,24 @@ class TextEncoder(nn.Module):
             idx = torch.from_numpy(_nearest_resize_index(t_in, new_t)).to(y.device)
             y_mask = (y_mask[:, :, idx] > 0).to(y.dtype)
         stats = self.proj(y) * y_mask
-        return stats[:, : self.inter], y_mask
+        return stats[:, : self.inter], y_mask, y
 
 
 class Generator(nn.Module):
-    """MRF HiFiGAN (models.py:407): upsample x prod(rates); tanh output."""
+    """MRF HiFiGAN (models.py:407): upsample x prod(rates); tanh output.
 
-    def __init__(self, c: S2Config):
+    The v4 vocoder is this generator on mels (`in_channels` 100) with the
+    rates and kernels of `vocoder_v4_config()`, a bias on conv_post and no
+    `cond` (the JAX module creates `cond` only when called with g; here
+    `conditioned` says so)."""
+
+    def __init__(self, c: S2Config, *, in_channels: int | None = None, use_post_bias: bool = False,
+                 conditioned: bool = True):
         super().__init__()
         uic = c.upsample_initial_channel
         self.n_k = len(c.resblock_kernel_sizes)
-        self.conv_pre = Conv1d(c.inter_channels, uic, 7)
-        if c.gin_channels:
+        self.conv_pre = Conv1d(in_channels or c.inter_channels, uic, 7)
+        if conditioned and c.gin_channels:
             self.cond = Conv1d(c.gin_channels, uic, 1)
         self.ups = nn.ModuleList()
         self.resblocks = nn.ModuleList()
@@ -107,7 +115,7 @@ class Generator(nn.Module):
             self.ups.append(ConvTranspose1d(uic // (2**i), ch, k, u, (k - u) // 2))
             for rk, rd in zip(c.resblock_kernel_sizes, c.resblock_dilation_sizes):
                 self.resblocks.append(ResBlock1(ch, rk, tuple(rd)))
-        self.conv_post = Conv1d(ch, 1, 7, bias=False)
+        self.conv_post = Conv1d(ch, 1, 7, bias=use_post_bias)
 
     def forward(self, x, g=None):
         """x (B,T,inter), g (B,1,gin) -> (B, T*prod(rates), 1)."""
@@ -207,6 +215,6 @@ class SynthesizerTrn(nn.Module):
         quantized = self.decode_codes(codes).transpose(1, 2)
         y_mask = sequence_mask(codes_lengths * 2, quantized.shape[2])
         text_mask = sequence_mask(text_lengths, text.shape[1])
-        m_p, y_mask = self.enc_p(quantized, y_mask, text, text_mask, ge_for_enc.transpose(1, 2), speed=speed)
+        m_p, y_mask, _ = self.enc_p(quantized, y_mask, text, text_mask, ge_for_enc.transpose(1, 2), speed=speed)
         z = self.flow.reverse(m_p, y_mask, g=ge.transpose(1, 2))
         return (z * y_mask).transpose(1, 2), ge

@@ -1,0 +1,304 @@
+"""int8 DiT projections: K2 and K3, the ports of the Pallas kernels
+gpt_sovits_tpu/ops/pallas/qmatmul.py `qdense_int8` and `qkv_rope_int8`.
+
+On CUDA tensors each wrapper launches the kernels of ``csrc/qmatmul.cu``
+(``row_quant``, then ``qdense`` or ``qkv_rope``; the note at the top of that
+file says what bounds them); on CPU tensors it takes its plain PyTorch twin
+(``qdense_int8_plain``, ``qkv_rope_int8_plain``), which is what the kernels
+are held against. There is no other route.
+
+Layouts: x (B, T, K) (or (T, K) for qdense), int8 weights in PyTorch's
+Linear layout (N, K) with (N,) f32 per-output-channel scales, f32 biases;
+qkv_rope returns q, k, v as (B, H, T, dim_head). The kernels take bf16
+activations and f32 scales, biases, AdaLN vectors, gates and masks.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from gpt_sovits_tpu_torch.ops import build
+
+INV127 = float(np.float32(1.0 / 127.0))
+LN_EPS = 1e-6
+GEMM_TILE_N = 128  # output columns per GEMM block (csrc/qmatmul.cu BN)
+GEMM_TILE_K = 64  # reduction step (BK)
+MAX_K = 2048  # row_quant holds a row of at most this many values
+
+# the kernels, in the order gsv_qmm_launch_counts reports their launches
+KERNELS = ("row_quant", "qdense_int8", "qkv_rope_int8")
+
+
+def launch_counts() -> dict:
+    """Launches of each kernel since the last reset, as the CUDA code counts
+    them. All zero while the library is not loaded."""
+    lib = build.loaded("qmatmul")
+    if lib is None:
+        return dict.fromkeys(KERNELS, 0)
+    out = (ctypes.c_longlong * len(KERNELS))()
+    lib.gsv_qmm_launch_counts(out)
+    return dict(zip(KERNELS, out))
+
+
+def reset_launch_counts() -> None:
+    lib = build.loaded("qmatmul")
+    if lib is not None:
+        lib.gsv_qmm_reset_launch_counts()
+
+
+# ---------------------------------------------------------------------------
+# plain twins
+# ---------------------------------------------------------------------------
+
+
+def _quant_rows(x, ln_mod=None):
+    """x (B, T, K) -> (int codes as f32 (B, T, K), scales (B, T, 1)), with the
+    optional affine-free LayerNorm + AdaLN prologue, all in f32."""
+    xf = x.float()
+    if ln_mod is not None:
+        sc, sh = ln_mod
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        xn = (xf - mu) * torch.rsqrt(var + LN_EPS)
+        xf = xn * (1.0 + sc.float()[:, None]) + sh.float()[:, None]
+    sx = torch.clamp_min(xf.abs().amax(-1, keepdim=True) * INV127, 1e-8)
+    xq = torch.clamp(torch.round(xf * torch.reciprocal(sx)), -127, 127)
+    return xq, sx
+
+
+def _int_proj(xq, sx, w, sw, bias):
+    """acc * sx * sw + b; float64 holds every s8 x s8 sum of K <= 2048 exactly."""
+    acc = (xq.double() @ w.double().t()).float()
+    return acc * sx * sw.float().reshape(-1) + bias.float().reshape(-1)
+
+
+def _gelu_tanh(y):
+    return 0.5 * y * (1.0 + torch.tanh(0.7978845608028654 * (y + 0.044715 * y * y * y)))
+
+
+def qdense_int8_plain(x, wq, sw, bias, ln_mod=None, res_gate=None, mask=None, *, act=None):
+    """y = (round(x / sx) @ wq^T) * sx * sw + b, with the optional glue:
+    ln_mod=(scale (B,K), shift (B,K)) prologue, act="gelu" (tanh) epilogue,
+    mask (B,T) pad-row zeroing, res_gate=(res (B,T,N), gate (B,N)):
+    y = res + gate * y. Returns x.dtype."""
+    squeeze = x.ndim == 2
+    if squeeze:
+        x = x[None]
+    xq, sx = _quant_rows(x, ln_mod)
+    y = _int_proj(xq, sx, wq, sw, bias)
+    if act == "gelu":
+        y = _gelu_tanh(y)
+    elif act is not None:
+        raise ValueError(f"act {act!r}: only 'gelu'")
+    if mask is not None:
+        y = torch.where(mask[..., None] > 0, y, torch.zeros_like(y))
+    if res_gate is not None:
+        res, gate = res_gate
+        y = res.float() + gate.float()[:, None] * y
+    y = y.to(x.dtype)
+    return y[0] if squeeze else y
+
+
+def rope_table(t_len: int, dim_head: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos, sin (T, dim_head/2) f32 of positions 0..T-1 (computed in float64
+    as the JAX kernel's wrapper computes them)."""
+    inv = 1.0 / (10000.0 ** (np.arange(0, dim_head, 2, dtype=np.float64) / dim_head))
+    freqs = np.einsum("t,f->tf", np.arange(t_len), inv)
+    return (torch.from_numpy(np.cos(freqs).astype(np.float32)).to(device),
+            torch.from_numpy(np.sin(freqs).astype(np.float32)).to(device))
+
+
+def rope_head0(y, cos, sin, dim_head: int):
+    """Rotate interleaved pairs of the first dim_head channels of (B, T, N)
+    only, in f32 (the reference's pre-split rotary quirk, dit.py:135)."""
+    x_rot = y[..., :dim_head]
+    even, odd = x_rot[..., 0::2], x_rot[..., 1::2]
+    rot = torch.stack([even * cos - odd * sin, odd * cos + even * sin], dim=-1).reshape(x_rot.shape)
+    return torch.cat([rot, y[..., dim_head:]], dim=-1)
+
+
+def qkv_rope_int8_plain(x, wq, wk, wv, sq, sk, sv, bq, bk, bv, ln_mod=None, *, dim_head: int, q_scale: float = 1.0):
+    """q, k, v (B, H, T, dim_head) in x.dtype: x quantized once (after the
+    optional prologue), three W8A8 projections, rotary on head 0 of q and k,
+    q times q_scale."""
+    b, t, _ = x.shape
+    xq, sx = _quant_rows(x, ln_mod)
+    cos, sin = rope_table(t, dim_head, x.device)
+    outs = []
+    for i, (w, s, bias) in enumerate(((wq, sq, bq), (wk, sk, bk), (wv, sv, bv))):
+        y = _int_proj(xq, sx, w, s, bias)
+        if i < 2:
+            y = rope_head0(y, cos, sin, dim_head)
+        if i == 0 and q_scale != 1.0:
+            y = y * q_scale
+        n = y.shape[-1]
+        outs.append(y.reshape(b, t, n // dim_head, dim_head).permute(0, 2, 1, 3).to(x.dtype).contiguous())
+    return tuple(outs)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers: CUDA tensors launch the kernels, CPU tensors take the twin
+# ---------------------------------------------------------------------------
+
+
+def _lib():
+    lib = build.load("qmatmul")
+    if not getattr(lib, "_gsv_typed", False):
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.gsv_row_quant.argtypes = [P, P, P, P, P, I, I, I, I, P]
+        lib.gsv_qdense.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P]
+        lib.gsv_qkv_rope.argtypes = [P] * 16 + [I, I, I, I, I, F, P]
+        for fn in (lib.gsv_row_quant, lib.gsv_qdense, lib.gsv_qkv_rope):
+            fn.restype = ctypes.c_int
+        lib.gsv_qmm_launch_counts.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+        lib.gsv_qmm_launch_counts.restype = None
+        lib.gsv_qmm_reset_launch_counts.argtypes = []
+        lib.gsv_qmm_reset_launch_counts.restype = None
+        lib._gsv_typed = True
+    return lib
+
+
+def check(name, t, dtype, shape, device, card: bool = True):
+    """Raise unless t is a contiguous tensor of the given shape on the given
+    device; for a launch (card) also of the given dtype and 16-byte aligned.
+    The wrappers check the layout on every device, so the CPU tests catch a
+    layout the kernels would refuse."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if card and t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if card and t.data_ptr() % 16:
+        raise ValueError(f"{name}: must be 16-byte aligned")
+
+
+def raise_on(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
+
+
+def on_card(t) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (take the twin); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for device {t.device}")
+
+
+def _check_gemm(k: int, n: int):
+    if k % GEMM_TILE_K or k > MAX_K:
+        raise ValueError(f"the int8 GEMM takes K a multiple of {GEMM_TILE_K} up to {MAX_K}, got {k}")
+    if n % GEMM_TILE_N:
+        raise ValueError(f"the int8 GEMM takes N a multiple of {GEMM_TILE_N}, got {n}")
+
+
+def _check_ln(ln_mod, b, k, dev, card):
+    if ln_mod is not None:
+        check("ln_mod scale", ln_mod[0], torch.float32, (b, k), dev, card)
+        check("ln_mod shift", ln_mod[1], torch.float32, (b, k), dev, card)
+
+
+def _row_quant(x, ln_mod):
+    """Launch row_quant: (B, T, K) bf16 -> int8 codes (B*T, K), scales (B*T,)."""
+    b, t, k = x.shape
+    dev = x.device
+    xq = torch.empty((b * t, k), dtype=torch.int8, device=dev)
+    sx = torch.empty((b * t,), dtype=torch.float32, device=dev)
+    rc = _lib().gsv_row_quant(
+        x.data_ptr(), ln_mod[0].data_ptr() if ln_mod is not None else None,
+        ln_mod[1].data_ptr() if ln_mod is not None else None, xq.data_ptr(), sx.data_ptr(),
+        b * t, k, t, int(ln_mod is not None), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    raise_on(rc, "row_quant")
+    return xq, sx
+
+
+def qdense_int8(x, wq, sw, bias, ln_mod=None, res_gate=None, mask=None, *, act=None):
+    """K2. See qdense_int8_plain for the function; on CUDA: x bf16 (B, T, K)
+    or (T, K), wq int8 (N, K), sw/bias f32 (N,), ln_mod f32 (B, K) each,
+    res bf16 (B, T, N), gate f32 (B, N), mask f32 (B, T); returns bf16."""
+    card = on_card(x)
+    if act not in (None, "gelu"):
+        raise ValueError(f"act {act!r}: only 'gelu'")
+    x3 = x[None] if x.ndim == 2 else x
+    b, t, k = x3.shape
+    n = wq.shape[0]
+    dev = x.device
+    _check_gemm(k, n)
+    check("x", x3, torch.bfloat16, (b, t, k), dev, card)
+    check("wq", wq, torch.int8, (n, k), dev, card)
+    check("sw", sw, torch.float32, (n,), dev, card)
+    check("bias", bias, torch.float32, (n,), dev, card)
+    _check_ln(ln_mod, b, k, dev, card)
+    res = gate = None
+    if res_gate is not None:
+        res, gate = res_gate
+        check("res", res, torch.bfloat16, (b, t, n), dev, card)
+        check("gate", gate, torch.float32, (b, n), dev, card)
+    if mask is not None:
+        check("mask", mask, torch.float32, (b, t), dev, card)
+    if not card:
+        return qdense_int8_plain(x, wq, sw, bias, ln_mod, res_gate, mask, act=act)
+    squeeze, x = x.ndim == 2, x3
+    xq, sx = _row_quant(x, ln_mod)
+    out = torch.empty((b, t, n), dtype=torch.bfloat16, device=dev)
+    rc = _lib().gsv_qdense(
+        xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), sw.data_ptr(), bias.data_ptr(),
+        res.data_ptr() if res is not None else None, gate.data_ptr() if gate is not None else None,
+        mask.data_ptr() if mask is not None else None, out.data_ptr(), b * t, n, k, t, int(act == "gelu"),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    raise_on(rc, "qdense_int8")
+    return out[0] if squeeze else out
+
+
+_ROPE: dict = {}
+
+
+def _rope_cached(t_len: int, dim_head: int, device):
+    key = (t_len, dim_head, device)
+    if key not in _ROPE:
+        _ROPE[key] = rope_table(t_len, dim_head, device)
+    return _ROPE[key]
+
+
+def qkv_rope_int8(x, wq, wk, wv, sq, sk, sv, bq, bk, bv, ln_mod=None, *, dim_head: int, q_scale: float = 1.0):
+    """K3. See qkv_rope_int8_plain for the function; on CUDA: x bf16
+    (B, T, K), three int8 (N, K) weights with f32 (N,) scales and biases,
+    ln_mod f32 (B, K) each; returns q, k, v bf16 (B, N/dim_head, T, dim_head)."""
+    card = on_card(x)
+    b, t, k = x.shape
+    n = wq.shape[0]
+    dev = x.device
+    _check_gemm(k, n)
+    if dim_head % 2 or n % dim_head:
+        raise ValueError(f"dim_head {dim_head} must be even and divide N={n}")
+    check("x", x, torch.bfloat16, (b, t, k), dev, card)
+    for nm, w in (("wq", wq), ("wk", wk), ("wv", wv)):
+        check(nm, w, torch.int8, (n, k), dev, card)
+    for nm, v in (("sq", sq), ("sk", sk), ("sv", sv), ("bq", bq), ("bk", bk), ("bv", bv)):
+        check(nm, v, torch.float32, (n,), dev, card)
+    _check_ln(ln_mod, b, k, dev, card)
+    if not card:
+        return qkv_rope_int8_plain(x, wq, wk, wv, sq, sk, sv, bq, bk, bv, ln_mod, dim_head=dim_head, q_scale=q_scale)
+    xq, sx = _row_quant(x, ln_mod)
+    cos, sin = _rope_cached(t, dim_head, dev)
+    h = n // dim_head
+    q, k_, v = (torch.empty((b, h, t, dim_head), dtype=torch.bfloat16, device=dev) for _ in range(3))
+    rc = _lib().gsv_qkv_rope(
+        xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), sq.data_ptr(), sk.data_ptr(),
+        sv.data_ptr(), bq.data_ptr(), bk.data_ptr(), bv.data_ptr(), cos.data_ptr(), sin.data_ptr(), q.data_ptr(),
+        k_.data_ptr(), v.data_ptr(), b * t, n, k, t, dim_head, float(q_scale), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    raise_on(rc, "qkv_rope_int8")
+    return q, k_, v

@@ -1,6 +1,7 @@
 """Typed configuration (a copy of the inference part of
-gpt_sovits_tpu/utils/config.py: MelConfig, S1Config, S2Config,
-InferenceConfig, s2_config_for_version)."""
+gpt_sovits_tpu/utils/config.py: MelConfig, MEL_V3, MEL_V4, S1Config,
+S2Config, InferenceConfig, s2_config_for_version) and the v4 vocoder's
+constants of gpt_sovits_tpu/utils/loaders.py `load_vocoder`."""
 
 from __future__ import annotations
 
@@ -26,6 +27,12 @@ class MelConfig:
     num_mels: int = 128
     fmin: float = 0.0
     fmax: float | None = None
+
+
+# Per-version mel configs used by the pipeline
+# (reference: TTS.py mel_fn / mel_fn_v4 closures and configs/s2.json "data").
+MEL_V3 = MelConfig(sampling_rate=24000, n_fft=1024, win_size=1024, hop_size=256, num_mels=100)
+MEL_V4 = MelConfig(sampling_rate=32000, n_fft=1280, win_size=1280, hop_size=320, num_mels=100)
 
 
 @dataclass(frozen=True)
@@ -77,6 +84,11 @@ class S2Config:
     freeze_quantizer: bool = True
     # v2Pro speaker-verification conditioning (ref models.py:895-911)
     sv_dim: int = 20480
+    # v3/v4 CFM path
+    cfm_mel_channels: int = 100
+    cfm_dit_depth: int = 22
+    cfm_dit_dim: int = 1024
+    cfm_dit_heads: int = 16
 
     @property
     def phoneme_vocab_size(self) -> int:
@@ -85,6 +97,10 @@ class S2Config:
     @property
     def is_pro(self) -> bool:
         return self.version in ("v2Pro", "v2ProPlus")
+
+    @property
+    def is_cfm(self) -> bool:
+        return self.version in ("v3", "v4")
 
 
 @dataclass(frozen=True)
@@ -99,6 +115,7 @@ class InferenceConfig:
     text_split_method: str = "cut5"
     batch_size: int = 8
     fragment_interval: float = 0.3
+    sample_steps: int = 32  # CFM Euler steps (v3/v4)
     max_ref_sec: float = 10.0
     min_ref_sec: float = 3.0
 
@@ -114,3 +131,12 @@ def s2_config_for_version(version: str) -> "S2Config":
     if version == "v2ProPlus":
         base = dataclasses.replace(base, upsample_initial_channel=768)
     return base
+
+
+def vocoder_v4_config() -> "S2Config":
+    """The v4 vocoder: the HiFiGAN Generator at x480 (mel frames at 100 Hz
+    to 48 kHz), reference TTS.py:631-655."""
+    return dataclasses.replace(
+        s2_config_for_version("v4"),
+        upsample_rates=(10, 6, 2, 2, 2), upsample_kernel_sizes=(20, 12, 4, 4, 4), upsample_initial_channel=512,
+    )

@@ -107,12 +107,7 @@ def _wn(node, pre, n_layers, out):
         _conv(node[f"res_skip_{i}"], f"{pre}.res_skip_layers.{i}", out, weight_norm=True)
 
 
-def s2_from_jax(params: dict, cfg) -> dict:
-    """SynthesizerTrn (v1/v2/v2Pro/v2ProPlus) under the reference names."""
-    p = params["params"]
-    out: dict = {}
-    e = p["enc_p"]
-    n_layers = cfg.n_layers
+def _enc_p(e, n_layers, out):
     _conv(e["ssl_proj"], "enc_p.ssl_proj", out)
     _relpos_encoder(e["encoder_ssl"], "enc_p.encoder_ssl", n_layers // 2, out)
     out["enc_p.text_embedding.weight"] = _t(e["text_embedding"]["embedding"])
@@ -126,31 +121,8 @@ def s2_from_jax(params: dict, cfg) -> dict:
     _relpos_encoder(e["encoder2"], "enc_p.encoder2", n_layers // 2, out)
     _conv(e["proj"], "enc_p.proj", out)
 
-    dec = p["dec"]
-    _conv(dec["conv_pre"], "dec.conv_pre", out)
-    if "cond" in dec:
-        _conv(dec["cond"], "dec.cond", out)
-    n_k = len(cfg.resblock_kernel_sizes)
-    for i in range(len(cfg.upsample_rates)):
-        w = np.asarray(dec[f"up_{i}"]["kernel"], np.float32).transpose(1, 2, 0)  # (k,in,out)->(in,out,k)
-        out[f"dec.ups.{i}.weight_g"] = _t(np.sqrt((w**2).sum(axis=(1, 2), keepdims=True)))
-        out[f"dec.ups.{i}.weight_v"] = _t(w)
-        if "bias" in dec[f"up_{i}"]:
-            out[f"dec.ups.{i}.bias"] = _t(dec[f"up_{i}"]["bias"])
-        for j in range(n_k):
-            rb = dec[f"resblock_{i}_{j}"]
-            for d in range(len(cfg.resblock_dilation_sizes[j])):
-                _conv(rb[f"c1_{d}"], f"dec.resblocks.{i * n_k + j}.convs1.{d}", out, weight_norm=True)
-                _conv(rb[f"c2_{d}"], f"dec.resblocks.{i * n_k + j}.convs2.{d}", out, weight_norm=True)
-    _conv(dec["conv_post"], "dec.conv_post", out)
 
-    for i in range(4):
-        fl = p["flow"][f"flow_{i}"]
-        _conv(fl["pre"], f"flow.flows.{i * 2}.pre", out)
-        _wn(fl["enc"], f"flow.flows.{i * 2}.enc", 4, out)
-        _conv(fl["post"], f"flow.flows.{i * 2}.post", out)
-
-    r = p["ref_enc"]
+def _style_encoder(r, out):
     _dense(r["spectral1"], "ref_enc.spectral.0.fc", out)
     _dense(r["spectral2"], "ref_enc.spectral.3.fc", out)
     _conv(r["temporal1"]["conv1"], "ref_enc.temporal.0.conv1.conv", out)
@@ -159,6 +131,45 @@ def s2_from_jax(params: dict, cfg) -> dict:
         _dense(r["slf_attn"][nm], f"ref_enc.slf_attn.{nm}", out)
     _dense(r["fc"], "ref_enc.fc.fc", out)
 
+
+def _generator(dec, pre, cfg, out, *, weight_norm: bool):
+    """The HiFiGAN generator's convolutions under `pre` (`dec.` in S2, none
+    in the standalone v4 vocoder)."""
+    _conv(dec["conv_pre"], f"{pre}conv_pre", out)
+    if "cond" in dec:
+        _conv(dec["cond"], f"{pre}cond", out)
+    n_k = len(cfg.resblock_kernel_sizes)
+    for i in range(len(cfg.upsample_rates)):
+        w = np.asarray(dec[f"up_{i}"]["kernel"], np.float32).transpose(1, 2, 0)  # (k,in,out)->(in,out,k)
+        if weight_norm:
+            out[f"{pre}ups.{i}.weight_g"] = _t(np.sqrt((w**2).sum(axis=(1, 2), keepdims=True)))
+            out[f"{pre}ups.{i}.weight_v"] = _t(w)
+        else:
+            out[f"{pre}ups.{i}.weight"] = _t(w)
+        if "bias" in dec[f"up_{i}"]:
+            out[f"{pre}ups.{i}.bias"] = _t(dec[f"up_{i}"]["bias"])
+        for j in range(n_k):
+            rb = dec[f"resblock_{i}_{j}"]
+            for d in range(len(cfg.resblock_dilation_sizes[j])):
+                _conv(rb[f"c1_{d}"], f"{pre}resblocks.{i * n_k + j}.convs1.{d}", out, weight_norm=weight_norm)
+                _conv(rb[f"c2_{d}"], f"{pre}resblocks.{i * n_k + j}.convs2.{d}", out, weight_norm=weight_norm)
+    _conv(dec["conv_post"], f"{pre}conv_post", out)
+
+
+def s2_from_jax(params: dict, cfg) -> dict:
+    """SynthesizerTrn (v1/v2/v2Pro/v2ProPlus) under the reference names."""
+    p = params["params"]
+    out: dict = {}
+    _enc_p(p["enc_p"], cfg.n_layers, out)
+    _generator(p["dec"], "dec.", cfg, out, weight_norm=True)
+
+    for i in range(4):
+        fl = p["flow"][f"flow_{i}"]
+        _conv(fl["pre"], f"flow.flows.{i * 2}.pre", out)
+        _wn(fl["enc"], f"flow.flows.{i * 2}.enc", 4, out)
+        _conv(fl["post"], f"flow.flows.{i * 2}.post", out)
+
+    _style_encoder(p["ref_enc"], out)
     _conv(p["ssl_proj"], "ssl_proj", out)
     out["quantizer.vq.layers.0._codebook.embed"] = _t(p["quantizer"]["embed"])
     if "enc_q" in p:
@@ -169,6 +180,77 @@ def s2_from_jax(params: dict, cfg) -> dict:
         _dense(p["sv_emb"], "sv_emb", out)
         _dense(p["ge_to512"], "ge_to512", out)
         out["prelu.weight"] = _t(p["prelu_alpha"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# v3/v4: SynthesizerTrnV3 with its DiT, and the v4 vocoder
+# ---------------------------------------------------------------------------
+
+
+def _dit(node, pre, depth, conv_layers, out):
+    """models/dit.py parameters -> the reference f5_tts DiT names, each
+    prefixed with `pre`."""
+    for which in ("time_embed", "d_embed"):
+        _dense(node[which]["mlp1"], f"{pre}{which}.time_mlp.0", out)
+        _dense(node[which]["mlp2"], f"{pre}{which}.time_mlp.2", out)
+    for i in range(conv_layers):
+        tb = node["text_embed"][f"block_{i}"]
+        tp = f"{pre}text_embed.text_blocks.{i}"
+        _conv(tb["dwconv"], f"{tp}.dwconv", out)
+        _ln(tb["norm"], f"{tp}.norm", out)
+        _dense(tb["pwconv1"], f"{tp}.pwconv1", out)
+        _dense(tb["pwconv2"], f"{tp}.pwconv2", out)
+        out[f"{tp}.grn.gamma"] = _t(tb["grn"]["gamma"])
+        out[f"{tp}.grn.beta"] = _t(tb["grn"]["beta"])
+    ie = node["input_embed"]
+    _dense(ie["proj"], f"{pre}input_embed.proj", out)
+    _conv(ie["conv_pos_embed"]["conv1"], f"{pre}input_embed.conv_pos_embed.conv1d.0", out)
+    _conv(ie["conv_pos_embed"]["conv2"], f"{pre}input_embed.conv_pos_embed.conv1d.2", out)
+    _dense(node["norm_out_linear"], f"{pre}norm_out.linear", out)
+    _dense(node["proj_out"], f"{pre}proj_out", out)
+    for i in range(depth):
+        b = node[f"block_{i}"]
+        bp = f"{pre}transformer_blocks.{i}"
+        _dense(b["ada_linear"], f"{bp}.attn_norm.linear", out)
+        for nm in ("to_q", "to_k", "to_v"):
+            _dense(b[nm], f"{bp}.attn.{nm}", out)
+        _dense(b["to_out"], f"{bp}.attn.to_out.0", out)
+        _dense(b["ff1"], f"{bp}.ff.ff.0.0", out)
+        _dense(b["ff2"], f"{bp}.ff.ff.2", out)
+
+
+def dit_from_jax(params: dict, cfg) -> dict:
+    """A models/dit.py DiT alone (cfg: its DiTConfig) under the reference
+    names, without the `cfm.estimator.` prefix."""
+    out: dict = {}
+    _dit(params["params"], "", cfg.depth, cfg.conv_layers, out)
+    return out
+
+
+def s2v3_from_jax(params: dict, cfg) -> dict:
+    """SynthesizerTrnV3 (v3/v4) under the reference names (those of
+    checkpoint_compat.py `s2v3_params_to_torch`), weight-norm pairs in wns1."""
+    p = params["params"]
+    out: dict = {}
+    _enc_p(p["enc_p"], cfg.n_layers, out)
+    _style_encoder(p["ref_enc"], out)
+    _conv(p["ssl_proj"], "ssl_proj", out)
+    out["quantizer.vq.layers.0._codebook.embed"] = _t(p["quantizer"]["embed"])
+    _conv(p["bridge"], "bridge.0", out)
+    _conv(p["wns1"]["pre"], "wns1.pre", out)
+    _wn(p["wns1"]["enc"], "wns1.enc", 8, out)
+    _conv(p["wns1"]["proj"], "wns1.proj", out)
+    _dit(p["cfm"]["estimator"], "cfm.estimator.", cfg.cfm_dit_depth, 4, out)
+    return out
+
+
+def vocoder_v4_from_jax(params: dict, cfg) -> dict:
+    """The v4 vocoder (models/vits.py Generator, no cond) under the names
+    the reference's vocoder checkpoint uses (loaders.py:170-184), weights
+    plain (weight norm already removed)."""
+    out: dict = {}
+    _generator(params["params"], "", cfg, out, weight_norm=False)
     return out
 
 

@@ -13,14 +13,18 @@ from gpt_sovits_tpu.models.eres2net import ERes2NetV2 as JSV
 from gpt_sovits_tpu.models.hubert import HubertConfig as JHubCfg
 from gpt_sovits_tpu.models.hubert import HubertEncoder as JHub
 from gpt_sovits_tpu.models.t2s import T2SDecoder as JT2S
+from gpt_sovits_tpu.models.v3 import SynthesizerTrnV3 as JV3
+from gpt_sovits_tpu.models.vits import Generator as JGen
 from gpt_sovits_tpu.models.vits import SynthesizerTrn as JSynth
 from gpt_sovits_tpu.utils import config as jconfig
-from gpt_sovits_tpu.utils.checkpoint_compat import s1_params_to_torch, s2_params_to_torch
+from gpt_sovits_tpu.utils.checkpoint_compat import s1_params_to_torch, s2_params_to_torch, s2v3_params_to_torch
+from gpt_sovits_tpu.utils.loaders import load_vocoder
 from gpt_sovits_tpu_torch import weights
 from gpt_sovits_tpu_torch.models.eres2net import ERes2NetConfig, ERes2NetV2
 from gpt_sovits_tpu_torch.models.hubert import HubertConfig, HubertEncoder
 from gpt_sovits_tpu_torch.models.t2s import T2SDecoder
-from gpt_sovits_tpu_torch.models.vits import SynthesizerTrn
+from gpt_sovits_tpu_torch.models.v3 import SynthesizerTrnV3
+from gpt_sovits_tpu_torch.models.vits import Generator, SynthesizerTrn
 from gpt_sovits_tpu_torch.utils import config as pconfig
 
 torch.set_num_threads(1)
@@ -83,3 +87,47 @@ def test_encoder_converters_load_strict():
     scfg = dict(num_blocks=(1, 2, 1, 1), m_channels=4, feat_dim=16)
     sp = _shapes(JSV(JSVConfig(**scfg)), jnp.zeros((1, 16, 16)))
     ERes2NetV2(ERes2NetConfig(**scfg)).load_state_dict(weights.eres2net_from_jax(sp, JSVConfig(**scfg)), strict=True)
+
+
+V4 = dict(S2, version="v4", cfm_mel_channels=20, cfm_dit_depth=2, cfm_dit_dim=64, cfm_dit_heads=4)
+
+
+def test_s2v3_from_jax_equals_reference_exporter():
+    cfg = jconfig.S2Config(**V4)
+    params = _shapes(
+        JV3(cfg), jnp.zeros((1, 16, cfg.ssl_dim)), jnp.zeros((1, 16, cfg.spec_channels)), jnp.asarray([16]),
+        jnp.zeros((1, 30, 20)), jnp.asarray([30]), jnp.zeros((1, 5), jnp.int32), jnp.asarray([5]),
+        method=JV3.init_all,
+    )
+    sd = weights.s2v3_from_jax(params, cfg)
+    _assert_same(sd, s2v3_params_to_torch(params, cfg))
+    model = SynthesizerTrnV3(pconfig.S2Config(**V4))
+    missing, unexpected = model.load_state_dict(sd, strict=True)  # wns1's weight norm folded
+    assert not missing and not unexpected
+    w = np.asarray(params["params"]["cfm"]["estimator"]["block_1"]["ff2"]["kernel"]).T
+    np.testing.assert_array_equal(model.cfm.estimator.transformer_blocks[1].ff.ff[2].weight.detach().numpy(), w)
+
+
+def test_vocoder_v4_names_read_by_the_jax_loader(tmp_path):
+    """vocoder_v4_from_jax writes what the JAX package's v4 vocoder loader
+    reads (utils/loaders.py:170-184): saved and read back there, every
+    parameter comes back unchanged; the port's Generator loads it strictly."""
+    import torch as _torch
+
+    full = pconfig.vocoder_v4_config()
+    jfull = jconfig.replace(jconfig.s2_config_for_version("v4"), upsample_rates=(10, 6, 2, 2, 2),
+                            upsample_kernel_sizes=(20, 12, 4, 4, 4), upsample_initial_channel=512)
+    assert (full.upsample_rates, full.upsample_kernel_sizes, full.upsample_initial_channel) == (
+        jfull.upsample_rates, jfull.upsample_kernel_sizes, jfull.upsample_initial_channel)
+    params = _shapes(JGen(jfull, use_post_bias=True), jnp.zeros((1, 4, 100)))
+    sd = weights.vocoder_v4_from_jax(params, full)
+    assert not any(k.startswith("cond") for k in sd)
+    path = tmp_path / "vocoder.pth"
+    _torch.save(sd, path)
+    _, back = load_vocoder(str(path), "v4")
+    flat = jax.tree_util.tree_leaves_with_path(params)
+    back_flat = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(flat) == len(back_flat)
+    for p, v in flat:
+        np.testing.assert_array_equal(np.asarray(back_flat[p]), v, err_msg=str(p))
+    Generator(full, in_channels=100, use_post_bias=True, conditioned=False).load_state_dict(sd, strict=True)
