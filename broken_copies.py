@@ -1,0 +1,88 @@
+"""Copies of the port with one fault planted in a CUDA kernel (K6
+`csrc/snake_aa.cu`, K4's path in `csrc/qmatmul.cu`), each of which must
+fail chip_smoke.py's check of that kernel on the card.
+
+    python3 broken_copies.py        # one CUDA card; exits non-zero if a copy passes its check
+
+Each copy is gpt_sovits_tpu_torch/ and chip_smoke.py under a temporary
+directory outside the checkout, with one line of one source replaced; its
+check (chip_smoke.snake_case or chip_smoke.k4_case at a main-path shape)
+runs in a child process there, which builds the copy's kernels. The same
+checks run first on the unbroken sources and must pass. One JSON line per
+copy: the check's outcome and the end of its assertion message.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SNAKE = "gpt_sovits_tpu_torch/csrc/snake_aa.cu"
+QMM = "gpt_sovits_tpu_torch/csrc/qmatmul.cu"
+CHECKS = {
+    # a stage shape whose T (8896) is not a multiple of the 1024-sample tile
+    "snake_f32": "c.snake_case(768, 8896, torch.float32, g)",
+    "snake_bf16": "c.snake_case(768, 8896, torch.bfloat16, g)",
+    "k4": "c.k4_case(1, g)",
+}
+# (name, source, the line as it is, the broken line, checks that must fail)
+COPIES = [
+    ("K6: s's index not clamped (the interior formula carried on through x at the edges)", SNAKE,
+     "    m = min(max(m, 0), two_t - 1);", "    // m not clamped", ("snake_f32", "snake_bf16")),
+    ("K6: the next channel's alpha and beta", SNAKE, "    const int c = (int)(row % C);",
+     "    const int c = (int)((row + 1) % C);", ("snake_f32", "snake_bf16")),
+    ("K6: the last, partial time tile dropped", SNAKE, "    const int n_tiles = (T + TT - 1) / TT;",
+     "    const int n_tiles = T / TT;", ("snake_f32", "snake_bf16")),
+    ("K4: heads merged in reverse order", QMM,
+     "                src = x + ((b * H + k0 / dh) * T + t) * dh + k0 % dh;",
+     "                src = x + ((b * H + (H - 1 - k0 / dh)) * T + t) * dh + k0 % dh;", ("k4",)),
+    ("K4: heads-in layout read as merged", QMM, "            if (HEADS) {  // head k0 / dh of row (b, t): x[b, k0 / dh, t, k0 % dh]",
+     "            if (false) {", ("k4",)),
+    ("K4: pad-row mask ignored", QMM, "            const bool keep = mask == nullptr || mask[row] > 0.f;",
+     "            const bool keep = true;", ("k4",)),
+]
+
+
+def run_check(tree: Path, check: str) -> tuple[bool, str]:
+    code = f"import torch, chip_smoke as c\nc.resolve_device('cuda')\ng = torch.Generator('cuda').manual_seed(0)\n{CHECKS[check]}\n"
+    res = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True, text=True, timeout=900)
+    tail = (res.stderr.strip().splitlines() or [""])[-1]
+    return res.returncode == 0, tail[-400:]
+
+
+def copy_tree(dst: Path) -> Path:
+    shutil.copytree(ROOT / "gpt_sovits_tpu_torch", dst / "gpt_sovits_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "chip_smoke.py", dst / "chip_smoke.py")
+    return dst
+
+
+def main() -> int:
+    ok = True
+    with tempfile.TemporaryDirectory(prefix="gsv_broken_") as tmp:
+        control = copy_tree(Path(tmp) / "control")
+        for check in CHECKS:
+            passed, tail = run_check(control, check)
+            print(json.dumps({"copy": "unbroken", "check": check, "passed": passed, "message": tail}), flush=True)
+            ok &= passed
+        for i, (name, src, old, new, checks) in enumerate(COPIES):
+            tree = copy_tree(Path(tmp) / f"copy{i}")
+            path = tree / src
+            text = path.read_text()
+            if text.count(old) != 1:
+                raise SystemExit(f"{name}: the line to break is not in {src} exactly once")
+            path.write_text(text.replace(old, new))
+            for check in checks:
+                passed, tail = run_check(tree, check)
+                print(json.dumps({"copy": name, "check": check, "failed": not passed, "message": tail}), flush=True)
+                ok &= not passed
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

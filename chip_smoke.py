@@ -1,7 +1,7 @@
 """On-card smoke test of the PyTorch/CUDA port: builds the CUDA kernels,
 holds each against its plain PyTorch twin at the main path's shapes, drives
-the full-width v2ProPlus zero-shot pipeline through them, and prints one
-JSON line per phase.
+the full-width v2ProPlus, v4 and v3 zero-shot pipelines through them, and
+prints one JSON line per phase.
 
     python3 chip_smoke.py            # one CUDA card; exits non-zero on any failure
 
@@ -12,14 +12,26 @@ moves far past its bar), widths (the whole step at B = 2..7 in both modes,
 held only), path (v2ProPlus: set_ref_audio + several `run` requests with
 random full-width weights made from --seed, launch counts read from the CUDA
 code), teacher (a greedy S1 trajectory through the kernels vs the plain
-twin); then for v4: kernels (K2, K3, K5 at dim 1024, 16 x 64 heads, ff 2048,
+twin), stream_v2 (one run_streaming request: a fragment per segment, each of
+its tokens' length plus the silence, and the time to the first); then for
+v4: kernels (K2, K3, K5 at dim 1024, 16 x 64 heads, ff 2048,
 T=1024 with 1000 real frames, B in {1, 4}, on inputs where a mask or rotary
 fault shows), path_v4 (set_ref_audio with a transcript + two `run` requests
 through S1, the int8 DiT CFM and the 48 kHz vocoder, one of them a
 multi-chunk CFM batch; launch counts from the CUDA code equal the per-call
 counts times the CFM calls), cfm_teacher (one full-width CFM chunk through
-the kernels and through the twins, and its profile); then the `kernels`
-summary line, the card's name and power limit, and last
+the kernels and through the twins, and its profile); then for v3:
+v3_kernels (K6 at BigVGAN's six stage shapes of a 2224-frame mel in bf16 and
+f32, on x of amplitude 5-20 with per-channel alpha and beta, edges held on
+their own; K4 at (B, 16, 2560, 64) for B in {1, 4}, heads of different
+scales, 50x pad rows under the mask), path_v3 (set_ref_audio with a
+transcript, then a batched request at 24 kHz, a serial one with AP-BWE at
+48 kHz and a streamed one, through S1, the int8 DiT CFM, BigVGAN and
+AP-BWE; launch counts from the CUDA code: 109 snake_aa a vocoder call, the
+v4 counts a CFM call), v3_profile (one BigVGAN and one AP-BWE call under
+the profiler), cfm_long (one CFM call at T=2560 through K3 -> SDPA
+-> K4 -> K2 and through the twins); then the `kernels` summary line, the
+card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Bounds use the H100 SXM's
 published peaks (3.35 TB/s; 989 TFLOP/s bf16, 1979 TOP/s int8, 67 TFLOP/s
 f32), with the card's power limit printed beside them.
@@ -38,7 +50,7 @@ import torch
 
 # the port first: without it (the script alone) nothing is printed
 from gpt_sovits_tpu_torch import resolve_device
-from gpt_sovits_tpu_torch.infer.pipeline import TTSPipeline
+from gpt_sovits_tpu_torch.infer.pipeline import TTSPipeline, v3_chunk_plan
 from gpt_sovits_tpu_torch.models.eres2net import ERes2NetV2
 from gpt_sovits_tpu_torch.models.hubert import HubertEncoder
 from gpt_sovits_tpu_torch.models.t2s import T2SDecoder, build_prefix_attn_bias
@@ -628,15 +640,17 @@ V4_PER_CFM_CALL = {"qkv_rope_int8": 22 * 32, "flash_attn_int8": 22 * 32, "qdense
 def all_launch_counts() -> dict:
     from gpt_sovits_tpu_torch.ops import qflash as qf
     from gpt_sovits_tpu_torch.ops import qmatmul as qm
+    from gpt_sovits_tpu_torch.ops import snake_aa as sa
 
-    return {**ds.launch_counts(), **qm.launch_counts(), **qf.launch_counts()}
+    return {**ds.launch_counts(), **qm.launch_counts(), **qf.launch_counts(), **sa.launch_counts()}
 
 
 def reset_all_launch_counts() -> None:
     from gpt_sovits_tpu_torch.ops import qflash as qf
     from gpt_sovits_tpu_torch.ops import qmatmul as qm
+    from gpt_sovits_tpu_torch.ops import snake_aa as sa
 
-    for mod in (ds, qm, qf):
+    for mod in (ds, qm, qf, sa):
         mod.reset_launch_counts()
 
 
@@ -697,14 +711,14 @@ class twins_in_dit:
         from gpt_sovits_tpu_torch.ops import qflash as qf
         from gpt_sovits_tpu_torch.ops import qmatmul as qm
 
-        self.saved = (dit.qdense_int8, dit.qkv_rope_int8, dit.flash_attn_int8)
-        dit.qdense_int8, dit.qkv_rope_int8, dit.flash_attn_int8 = (
-            qm.qdense_int8_plain, qm.qkv_rope_int8_plain, qf.flash_attn_int8_plain)
+        self.saved = (dit.qdense_int8, dit.qkv_rope_int8, dit.flash_attn_int8, dit.qdense_out_int8)
+        dit.qdense_int8, dit.qkv_rope_int8, dit.flash_attn_int8, dit.qdense_out_int8 = (
+            qm.qdense_int8_plain, qm.qkv_rope_int8_plain, qf.flash_attn_int8_plain, qm.qdense_out_int8_plain)
 
     def __exit__(self, *exc):
         from gpt_sovits_tpu_torch.models import dit
 
-        dit.qdense_int8, dit.qkv_rope_int8, dit.flash_attn_int8 = self.saved
+        dit.qdense_int8, dit.qkv_rope_int8, dit.flash_attn_int8, dit.qdense_out_int8 = self.saved
 
 
 def cfm_teacher_phase(pipe, seed: int) -> dict:
@@ -733,6 +747,299 @@ def cfm_teacher_phase(pipe, seed: int) -> dict:
     assert np.isfinite(rl1) and rl1 < 0.02, rl1
     prof = profile_steps(cfm, steps=2)
     return {"rel_l1": rl1, "mel_abs_mean": float(ref[:, t_min:V4_REAL].abs().mean()), "cfm_call": prof}
+
+
+# ---------------------------------------------------------------------------
+# v3: K6 (csrc/snake_aa.cu, also standing for K7) and K4 (csrc/qmatmul.cu)
+# ---------------------------------------------------------------------------
+
+# BigVGAN's stage shapes for a 2224-frame mel, 4 CFM chunks of 556 frames
+# (path_v3's batched request when both segments run to the 10 s cap; S1 may
+# stop one earlier): (channels, samples) after each upsample of
+# BigVGANConfig(); every resblock activation of a stage has that shape (18 of
+# them), and activation_post the last one's. (768, 8896) ... (24, 569344).
+V3_MEL = 2224
+V3_STAGES = tuple((1536 // 2 ** (i + 1), V3_MEL * int(np.prod((4, 4, 2, 2, 2, 2)[: i + 1]))) for i in range(6))
+V3_SNAKES_PER_STAGE = 18  # 3 resblocks x 3 dilations x 2 activations
+SNAKE_PER_CALL = V3_SNAKES_PER_STAGE * len(V3_STAGES) + 1  # 109 launches per BigVGAN call
+SNAKE_OPS = 82  # f32 operations an output: 24 FMAs for two upsampled samples, 2 x (sin, square, 2 mul/add), 12 FMAs
+SNAKE_SRC = "gpt_sovits_tpu_torch/csrc/snake_aa.cu"
+SNAKE_REPLACES = "gpt_sovits_tpu/ops/pallas/snake_aa.py:428 (K6 snake_aa_fused; also :301, K7 snake_aa_folded)"
+K4_REPLACES = "gpt_sovits_tpu/ops/pallas/qmatmul.py:346"
+K4_T, K4_REAL = 2560, 2500  # a DiT chunk past MAX_INT8_T: T 2560, 2500 real frames
+
+
+def _snake_misses(got, ref, rtol):
+    """Where |got - ref| exceeds 2e-5 + rtol |ref| (elementwise), and by how much."""
+    got, ref = got.float(), ref.float()
+    return (got - ref).abs() - (2e-5 + rtol * ref.abs())
+
+
+def snake_case(c: int, t: int, dtype, g: torch.Generator) -> dict:
+    """K6 at one stage shape, held elementwise within 2e-5 + rtol |ref| of
+    its twin over the whole row and over its first and last 8 samples on
+    their own: x of amplitude 5-20 (|a u| in the tens), alpha and beta that
+    differ per channel, T not a multiple of the kernel's 1024-sample tile. On the twin, the share of outputs at which a channel
+    fault (the next channel's parameters) or an edge fault (the interior
+    formula carried on through x, first 3 samples) would miss the bar."""
+    from gpt_sovits_tpu_torch.ops import snake_aa as sa
+
+    dev = torch.device("cuda")
+    amp = 5.0 + 15.0 * torch.rand((1, c, 1), generator=g, device=dev)
+    x = (torch.randn((1, c, t), generator=g, device=dev) * amp).to(dtype).contiguous()
+    alpha = (0.5 * torch.randn(c, generator=g, device=dev)).contiguous()
+    beta = (0.5 * torch.randn(c, generator=g, device=dev)).contiguous()
+    # rtol 1e-4 in f32 (the JAX tests' bar); one bf16 step (2^-7) in bf16, where
+    # both sides round an f32 result that differs in its last bits
+    rtol = 1e-4 if dtype == torch.float32 else 2.0**-7
+    got, ref = sa.snake_aa(x, alpha, beta), sa.snake_aa_plain(x, alpha, beta)
+    miss = _snake_misses(got, ref, rtol)
+    err = (got.float() - ref.float()).abs()
+    held = {"max_abs_err": float(err.max()), "out_max": float(ref.float().abs().max()),
+            "edge_max_abs_err": float(torch.cat([err[..., :8], err[..., -8:]], -1).max()),
+            "excess": float(miss.max()), "edge_excess": float(torch.cat([miss[..., :8], miss[..., -8:]], -1).max())}
+    assert held["excess"] <= 0 and held["edge_excess"] <= 0, f"snake_aa {dtype} ({c}, {t}) disagrees: {held}"
+    x32 = x.float()
+    ref32 = sa.snake_aa_plain(x32, alpha, beta)
+    shifted = sa.snake_aa_plain(x32, alpha.roll(1), beta.roll(1))
+    held["channel_fault_miss_share"] = float((_snake_misses(shifted, ref32, rtol) > 0).float().mean())
+    through_x = sa.snake_aa_plain(torch.nn.functional.pad(x32, (8, 8), mode="replicate"), alpha, beta)[..., 8:-8]
+    held["edge_fault_miss_share"] = float((_snake_misses(through_x, ref32, rtol)[..., :3] > 0).float().mean())
+    assert held["channel_fault_miss_share"] > 0.01 and held["edge_fault_miss_share"] > 0, held
+    bound, by = bound_ms(2 * x.numel() * x.element_size() + 8 * c, SNAKE_OPS * x.numel(), "f32")
+    return dict(held=held, **timings("", lambda i: sa.snake_aa(x, alpha, beta), 20),
+                **timings("plain_", lambda i: sa.snake_aa_plain(x, alpha, beta), 3),
+                library_ms=None, bound_ms=bound, bound_by=by, config=f"(1, {c}, {t}) {str(dtype)[6:]}")
+
+
+def k4_case(b: int, g: torch.Generator) -> dict:
+    """K4 at (B, 16, 2560, 64) -> 1024 with 2500 real frames: heads of very
+    different scales (a head-order or layout fault moves every row), pad rows
+    50x larger with the mask on (the pad rows must carry the residual
+    alone); what merging the heads in reverse order would cost is measured
+    on the twin. Library: torch._int_mm on the same int8 shapes."""
+    from gpt_sovits_tpu_torch.ops import qmatmul as qm
+
+    dev = torch.device("cuda")
+    t, d = K4_T, V4_DIM
+    scale = torch.logspace(-1, 1, V4_HEADS, device=dev)[None, :, None, None]
+    attn = torch.randn((b, V4_HEADS, t, V4_DH), generator=g, device=dev) * scale
+    attn[:, :, K4_REAL:] *= 50.0
+    attn = attn.to(torch.bfloat16).contiguous()
+    mask = torch.zeros((b, t), device=dev)
+    mask[:, :K4_REAL] = 1.0
+    res = torch.randn((b, t, d), generator=g, device=dev).to(torch.bfloat16)
+    gate = (0.5 * torch.randn((b, d), generator=g, device=dev)).contiguous()
+    w = _qweight(d, d, g)
+    call = lambda fn, a=attn: fn(a, *w, res_gate_mask=(res, gate, mask))  # noqa: E731
+    got, ref = call(qm.qdense_out_int8), call(qm.qdense_out_int8_plain)
+    held = {"masked": _held("qdense_out_int8", got, ref)}
+    assert float((got[:, K4_REAL:].float() - res[:, K4_REAL:].float()).abs().max()) <= 1e-2, "mask ignored"
+    held["plain"] = _held("qdense_out_int8 (no epilogue)", qm.qdense_out_int8(attn, *w), qm.qdense_out_int8_plain(attn, *w))
+    rev = call(qm.qdense_out_int8_plain, attn.flip(1).contiguous())
+    held["head_order_shift"] = float((rev.float() - ref.float()).abs()[:, :K4_REAL].max())
+    assert held["head_order_shift"] > 10 * V4_BAR * held["masked"]["out_max"], held
+    m = b * t
+    xq_lib = torch.randint(-127, 128, (m, d), generator=g, device=dev, dtype=torch.int8)
+    nbytes = m * d * 2 + d * d + 8 * d + 2 * m * d * 2 + b * d * 4 + m * 4
+    bound, by = bound_ms(nbytes, 2 * m * d * d, "int8")
+    return dict(max_abs_err=held["masked"]["max_abs_err"], held=held,
+                **timings("", lambda i: call(qm.qdense_out_int8), 20),
+                **timings("plain_", lambda i: call(qm.qdense_out_int8_plain), 3),
+                **timings("library_", lambda i: torch._int_mm(xq_lib, w[0].t()), 20),
+                bound_ms=bound, bound_by=by,
+                config=f"B={b}, (B, 16, {t}, 64) -> 1024, {K4_REAL} real frames; ms includes row_quant_heads")
+
+
+def v3_kernel_phase(seed: int) -> dict:
+    """K6 at every BigVGAN stage shape of a 2224-frame mel in bf16 and f32,
+    K4 at B = 1 and 4; one line each. Returns the rows by (name, config)."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 30)
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for c, t in V3_STAGES:
+            r = snake_case(c, t, dtype, g)
+            emit({"phase": "v3_kernels", "kernel": "snake_aa", **r})
+            rows[("snake_aa", dtype, c)] = r
+            torch.cuda.empty_cache()
+    for b in (1, 4):
+        r = k4_case(b, g)
+        emit({"phase": "v3_kernels", "kernel": "qdense_out_int8", "B": b, **r})
+        rows[("qdense_out_int8", b)] = r
+    return rows
+
+
+def snake_per_call(rows: dict) -> dict:
+    """The 109 launches of one BigVGAN call on a 2224-frame mel in bf16,
+    summed from the per-stage rows (18 a stage, one more at the last)."""
+    per = [(V3_SNAKES_PER_STAGE + (i == len(V3_STAGES) - 1), rows[("snake_aa", torch.bfloat16, c)])
+           for i, (c, _) in enumerate(V3_STAGES)]
+    out = {k: sum(n * r[k] for n, r in per) for k in ("ms", "plain_ms", "bound_ms")}
+    out["bound_by"] = per[-1][1]["bound_by"]
+    out["max_abs_err"] = max(r["held"]["max_abs_err"] for _, r in per)
+    out["timer"] = per[-1][1]["timer"]
+    return out
+
+
+def build_v3_pipeline(seed: int):
+    """v3 at full width, random weights from the seed: S1Config(), the v3
+    SynthesizerTrnV3 (DiT 22 x 1024, 16 heads), BigVGAN (1536 channels,
+    x256), AP-BWE (512 x 8, 24 -> 48 kHz), CNHuBERT."""
+    from gpt_sovits_tpu_torch.infer.pipeline import V3Bundle, serving_t_chunk
+    from gpt_sovits_tpu_torch.models.apbwe import APBWEConfig, APNetBWE
+    from gpt_sovits_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig
+    from gpt_sovits_tpu_torch.models.v3 import SynthesizerTrnV3
+    from gpt_sovits_tpu_torch.utils.config import MEL_V3
+
+    torch.manual_seed(seed)
+    bundle = V3Bundle(
+        model=SynthesizerTrnV3(s2_config_for_version("v3")), vocoder=BigVGAN(BigVGANConfig()),
+        sr_model=APNetBWE(APBWEConfig()), mel_cfg=MEL_V3, t_ref=468, t_chunk=serving_t_chunk("v3", "cuda"),
+        out_sr=24000, sample_steps=32,
+    )
+    return TTSPipeline(s1_model=T2SDecoder(S1Config()), s2_model=None, hubert_model=HubertEncoder(), v3_bundle=bundle)
+
+
+V3_MAX_SEC = 10  # 250 tokens, 937 mel frames a segment: two segments are 4 CFM chunks of 556, a 2224-frame mel
+V3_TEXT = "Hello there, this is a short test of the flow matching path."
+V3_PER_CFM_CALL = {**V4_PER_CFM_CALL, "row_quant_heads": 0, "qdense_out_int8": 0}  # T 1024: K5, not K4
+
+
+def _apbwe_len(n: int) -> int:
+    """Samples out of AP-BWE for n at 24 kHz: x2, then hop 240 x (frames - 1)."""
+    return 240 * (2 * n // 240)
+
+
+def path_v3_phase(pipe, seed: int) -> dict:
+    """The full-width v3 requests: (a) a batched run at 24 kHz (one CFM call
+    over the chunks of 2 segments, one vocoder call), (b) the serial branch
+    with AP-BWE at 48 kHz, (c) run_streaming. Lengths and rates from the S1
+    token counts. Returns the CFM and vocoder calls they made, and the
+    frames of (a)'s vocoder call."""
+    t0 = time.perf_counter()
+    pipe.set_ref_audio(reference_wav(seed), sr=32000, ref_text="This is the reference voice speaking clearly.")
+    pipe._v3_ref_features()
+    torch.cuda.synchronize()
+    emit({"phase": "path_v3", "event": "set_ref_audio", "s": time.perf_counter() - t0,
+          "prompt_tokens": int(len(pipe.ref.prompt_semantic)), "dit_quant": pipe.dit_quant, "t_chunk": pipe.v3.t_chunk})
+    up = 256
+    silence24, silence48 = int(24000 * pipe.cfg.fragment_interval), int(48000 * pipe.cfg.fragment_interval)
+    calls = {"cfm": 0, "vocoder": 0}
+
+    def record(name, wall, audio_s, extra):
+        rec = {"phase": "path_v3", "request": name, "tokens": list(pipe.last_tokens.values()),
+               "cfm_batch": [list(b) for b in pipe.last_cfm_batch], "audio_s": audio_s, "wall_s": wall,
+               "rtf": wall / audio_s, **extra}
+        emit(rec)
+        calls["cfm"] += len(pipe.last_cfm_batch)
+        return rec
+
+    # (a) batched, 24 kHz
+    t0 = time.perf_counter()
+    sr, audio = pipe.run(V3_TEXT, "en", seed=seed, max_sec=V3_MAX_SEC, super_sampling=False)
+    wall = time.perf_counter() - t0
+    frames = [pipe._mel_len_for(n, 1.0) for n in pipe.last_tokens.values()]
+    assert sr == 24000 and audio.dtype == np.int16 and len(frames) == 2, (sr, audio.dtype, frames)
+    assert audio.shape == (sum(f * up for f in frames) + silence24,), (audio.shape, frames)
+    chunk_len = pipe.v3.t_chunk - pipe._v3_ref_features()[3]
+    bs, _, bs_pad = v3_chunk_plan(sum(frames), chunk_len, pipe.v3.overlapped_len)
+    assert pipe.last_cfm_batch == [(bs, bs_pad)] and bs > 1, (pipe.last_cfm_batch, bs, bs_pad)  # a multi-chunk batch
+    calls["vocoder_frames"] = bs_pad * chunk_len  # the batched vocoder call's mel
+    rec = record("batched_24k", wall, len(audio) / sr, {"phases_s": pipe.last_timing,
+                                                         "vocoder_frames": calls["vocoder_frames"]})
+    calls["vocoder"] += len(rec["cfm_batch"])
+    assert np.isfinite(audio.astype(np.float32)).all()
+
+    # (b) serial, AP-BWE to 48 kHz
+    t0 = time.perf_counter()
+    sr, audio = pipe.run(V3_TEXT, "en", seed=seed, max_sec=V3_MAX_SEC, parallel_infer=False, super_sampling=True)
+    wall = time.perf_counter() - t0
+    frames = [pipe._mel_len_for(n, 1.0) for n in pipe.last_tokens.values()]
+    assert sr == 48000 and audio.dtype == np.int16 and len(frames) == 2
+    assert audio.shape == (sum(_apbwe_len(f * up) for f in frames) + silence48,), (audio.shape, frames)
+    assert len(pipe.last_cfm_batch) == sum(-(-f // chunk_len) for f in frames) > len(frames)  # rolling chunks
+    record("serial_48k", wall, len(audio) / sr, {"phases_s": pipe.last_timing})
+    calls["vocoder"] += len(frames)
+
+    # (c) streaming (serial branch), 24 kHz
+    t0 = time.perf_counter()
+    frags = list(pipe.run_streaming(V3_TEXT, "en", seed=seed, max_sec=V3_MAX_SEC, super_sampling=False))
+    wall = time.perf_counter() - t0
+    frames = [pipe._mel_len_for(n, 1.0) for n in pipe.last_tokens.values()]
+    assert [f[0] for f in frags] == [24000] * len(frames) == [24000, 24000]
+    assert [len(f[1]) for f in frags] == [n * up + silence24 for n in frames], ([len(f[1]) for f in frags], frames)
+    assert 0 < pipe.last_ttfb < wall
+    record("streaming_24k", wall, sum(len(f[1]) for f in frags) / 24000,
+           {"fragments": len(frags), "ttfb_s": pipe.last_ttfb})
+    calls["vocoder"] += len(frames)
+    return calls
+
+
+def v3_layer_profiles(pipe, seed: int) -> dict:
+    """One BigVGAN call on a 2224-frame mel (bf16) and one AP-BWE call on
+    10 s of 24 kHz audio, under the profiler: device time by kernel and the
+    share of the wall time the device sat idle."""
+    from gpt_sovits_tpu_torch.models.apbwe import super_resolve
+
+    g = torch.Generator(device=pipe.device).manual_seed(seed + 50)
+    mel = (2.0 * torch.randn((1, V3_MEL, pipe.v3.mel_cfg.num_mels), generator=g, device=pipe.device) - 6.0)
+    mel = mel.to(pipe._voc_dtype)
+    wav = (0.1 * np.random.default_rng(seed).standard_normal((1, 240000))).astype(np.float32)
+    with torch.no_grad():
+        return {"bigvgan_2224_frames": profile_steps(lambda i: pipe._voc(mel), steps=2),
+                "apbwe_10s": profile_steps(lambda i: super_resolve(pipe.v3.sr_model, wav, 24000), steps=2)}
+
+
+def cfm_long_phase(pipe, seed: int, steps: int = 4) -> dict:
+    """One full-width CFM call past MAX_INT8_T (B=1, T=2560 with 2500 real
+    frames, a few Euler steps) through K3 -> SDPA -> K4 -> K2 and through
+    the twins on the card: relative L1 of the mel < 0.02 (the JAX package's
+    int8 bar, tests/test_dit_quant.py). K4 launches once a block a step."""
+    from gpt_sovits_tpu_torch.models.v3 import cfm_inference
+
+    dev = pipe.device
+    g = torch.Generator(device=dev).manual_seed(seed + 40)
+    _, _, mel2, t_min = pipe._v3_ref_features()
+    dcfg = pipe._dit.cfg
+    mu = (0.5 * torch.randn((1, K4_T, dcfg.text_dim), generator=g, device=dev)).to(pipe._cfm_dtype)
+    noise = torch.randn((1, K4_T, dcfg.mel_dim), generator=g, device=dev)
+    lens = torch.tensor([K4_REAL], device=dev)
+
+    def cfm():
+        return cfm_inference(pipe._dit, mu, lens, mel2, noise=noise, n_steps=steps, pad_t_to=pipe.pad_t_to).float()
+
+    reset_all_launch_counts()
+    got = cfm()
+    torch.cuda.synchronize()
+    launches = all_launch_counts()
+    per_block_step = dcfg.depth * steps
+    expect = {"qkv_rope_int8": per_block_step, "row_quant_heads": per_block_step, "qdense_out_int8": per_block_step,
+              "qdense_int8": 2 * per_block_step, "row_quant": 3 * per_block_step, "flash_attn_int8": 0, "v_quant": 0}
+    assert all(launches[k] == v for k, v in expect.items()), (launches, expect)
+    with twins_in_dit():
+        ref = cfm()
+    sl = slice(t_min, K4_REAL)
+    rl1 = float((got[:, sl] - ref[:, sl]).abs().mean() / ref[:, sl].abs().mean())
+    assert np.isfinite(rl1) and rl1 < 0.02, rl1
+    return {"rel_l1": rl1, "mel_abs_mean": float(ref[:, sl].abs().mean()), "T": K4_T, "real": K4_REAL,
+            "steps": steps, "launches": {k: launches[k] for k in expect}}
+
+
+def stream_v2_phase(pipe, seed: int) -> dict:
+    """One run_streaming request on the v2ProPlus pipeline: one fragment per
+    segment in reading order, each its tokens' length plus the silence."""
+    hop_up = int(np.prod(pipe.s2.cfg.upsample_rates))
+    sr = pipe.mel_cfg.sampling_rate
+    silence = int(sr * pipe.cfg.fragment_interval)
+    t0 = time.perf_counter()
+    frags = list(pipe.run_streaming(REQUESTS[1], "en", seed=seed, max_sec=MAX_SEC))
+    wall = time.perf_counter() - t0
+    tokens = list(pipe.last_tokens.values())
+    assert len(frags) == len(tokens) > 1 and all(f[0] == sr and f[1].dtype == np.int16 for f in frags)
+    assert [len(f[1]) for f in frags] == [n * 2 * hop_up + silence for n in tokens], ([len(f[1]) for f in frags], tokens)
+    assert 0 < pipe.last_ttfb < wall
+    return {"fragments": len(frags), "tokens": tokens, "ttfb_s": pipe.last_ttfb, "wall_s": wall,
+            "audio_s": sum(len(f[1]) for f in frags) / sr}
 
 
 def main(argv=None) -> int:
@@ -771,6 +1078,7 @@ def main(argv=None) -> int:
     emit({"phase": "teacher", "greedy_agreement": agree})
     assert agree >= 0.9, agree
     emit({"phase": "path", "launches": launches, "max_memory_GB": torch.cuda.max_memory_allocated() / 1e9})
+    emit({"phase": "stream_v2", **stream_v2_phase(pipe, args.seed)})
 
     del pipe
     torch.cuda.empty_cache()
@@ -792,6 +1100,24 @@ def main(argv=None) -> int:
     emit({"phase": "path_v4", "launches": launches4, "cfm_calls": n_cfm,
           "max_memory_GB": torch.cuda.max_memory_allocated() / 1e9})
     emit({"phase": "cfm_teacher", **cfm_teacher_phase(pipe4, args.seed)})
+    del pipe4
+    torch.cuda.empty_cache()
+
+    # v3: K6 at BigVGAN's stage shapes and K4, then the full-width v3 path
+    v3_rows = v3_kernel_phase(args.seed)
+    pipe3 = build_v3_pipeline(args.seed)
+    reset_all_launch_counts()
+    calls = path_v3_phase(pipe3, args.seed)
+    launches3 = all_launch_counts()  # counted from 0 just before the v3 requests
+    for name, per_call in V3_PER_CFM_CALL.items():
+        assert launches3[name] == per_call * calls["cfm"], (name, launches3[name], per_call, calls)
+    assert launches3["snake_aa"] == SNAKE_PER_CALL * calls["vocoder"], (launches3["snake_aa"], calls)
+    assert launches3["fused_decode_step"] > 0, launches3
+    emit({"phase": "path_v3", "launches": launches3, "cfm_calls": calls["cfm"], "vocoder_calls": calls["vocoder"],
+          "max_memory_GB": torch.cuda.max_memory_allocated() / 1e9})
+    emit({"phase": "v3_profile", **v3_layer_profiles(pipe3, args.seed)})
+    long = cfm_long_phase(pipe3, args.seed)  # resets and reads the counts around its one kernel run
+    emit({"phase": "cfm_long", **long})
 
     main_rows = table[("int8", 1)]
     kernels = []
@@ -804,6 +1130,9 @@ def main(argv=None) -> int:
             "config": "int8 weights + int8 KV, B=1, live 745 of 1024; proj/add_layernorm/decode_attn per layer, "
                       "fused_decode_step per 24-layer step",
         })
+    lib_bf16 = table[("bf16", 1)]
+    for k in kernels:  # K1's parts: the bf16 mode's library call (torch.matmul, SDPA, layer_norm) at B=1
+        k["library_ms_bf16"] = lib_bf16[k["name"]]["library_ms"]
     helpers = {"qdense_int8": "row_quant", "qkv_rope_int8": "row_quant", "flash_attn_int8": "v_quant"}
     for name in ("qdense_int8", "qkv_rope_int8", "flash_attn_int8"):
         r = v4_rows[(name, 4)]
@@ -814,6 +1143,22 @@ def main(argv=None) -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "timer": r["timer"],
             "config": r["config"] + "; v4 DiT widths, ms includes the wrapper's " + helpers[name] + " launch",
         })
+    r = v3_rows[("qdense_out_int8", 1)]
+    kernels.append({
+        "name": "qdense_out_int8", "route": "cuda", "source": V4_SRC["qdense_int8"], "replaces": K4_REPLACES,
+        "launches": long["launches"]["qdense_out_int8"],
+        "helper_launches": {"row_quant_heads": long["launches"]["row_quant_heads"]},
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"], "timer": r["timer"],
+        "config": r["config"] + "; launches from the cfm_long phase (T 2560, 4 steps)",
+    })
+    sn = snake_per_call(v3_rows)
+    kernels.append({
+        "name": "snake_aa", "route": "cuda", "source": SNAKE_SRC, "replaces": SNAKE_REPLACES,
+        "launches": launches3["snake_aa"], **sn, "library_ms": None,
+        "config": "one BigVGAN call on a 2224-frame mel in bf16: the 109 launches at the six stage shapes, "
+                  "summed from the per-stage v3_kernels lines; no single PyTorch call computes this function",
+    })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

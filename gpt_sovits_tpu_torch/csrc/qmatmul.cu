@@ -1,6 +1,6 @@
-// int8 DiT projections (K2, K3) for Hopper, sm_90a.
+// int8 DiT projections (K2, K3, K4) for Hopper, sm_90a.
 //
-// Replaces two Pallas TPU kernels of gpt_sovits_tpu/ops/pallas/qmatmul.py:
+// Replaces three Pallas TPU kernels of gpt_sovits_tpu/ops/pallas/qmatmul.py:
 //   * `qdense_int8` (body `_make_qmm_kernel`), K2: y = (round(x / sx) @ Wq)
 //     * sx * sw + b with a dynamic per-row activation scale
 //     sx = max(max|x| / 127, 1e-8), s8 x s8 -> s32, and the DiT block's glue:
@@ -11,10 +11,20 @@
 //     quantized once for three projections (q, k, v), rotary embedding on
 //     the first dim_head channels of q and k only (interleaved pairs), an
 //     optional static q scale, and the (B, H, T, dim_head) layout of K5.
+//   * `qdense_out_int8` (body `_make_heads_in_kernel`), K4: the attention
+//     output projection of the DiT's long-chunk branch, reading the
+//     (B, H, T, dh) layout of the attention directly. Its activation scale
+//     per row is the max over heads of each head's row max, which is the row
+//     max of the merged (T, H*dh) matrix, and its per-head s8 dots summed
+//     over heads are the merged row's s8 dot. So K4 is K2 on the merged
+//     layout: row_quant_heads (row_quant with the head merge done in its
+//     loads, no transpose through memory) and the same GEMM, whose epilogue
+//     applies the bias, the pad-row mask and the gated residual.
 //
-// Each is two launches: row_quant (prologue, per-row scale, int8 codes of
-// x: x is read and quantized exactly once, as on the TPU) and a GEMM
-// (qdense / qkv_rope) whose epilogue applies the glue. Weights are int8 in
+// Each is two launches: row_quant, or row_quant_heads for K4 (prologue,
+// per-row scale, int8 codes of x: x is read and quantized exactly once, as
+// on the TPU) and a GEMM (qdense, whose kernel K4 shares, or qkv_rope) whose
+// epilogue applies the glue. Weights are int8 in
 // PyTorch's Linear layout (N, K), so both MMA operands are K-contiguous.
 //
 // What bounds them: at the main path's shapes (M = B x 1024 rows, K and N
@@ -45,7 +55,7 @@
 
 namespace {
 
-enum Counter { C_ROWQ, C_QDENSE, C_QKV, C_COUNT };
+enum Counter { C_ROWQ, C_QDENSE, C_QKV, C_ROWQH, C_QOUT, C_COUNT };
 long long g_launches[C_COUNT] = {};
 
 cudaError_t counted(Counter c) {
@@ -58,7 +68,9 @@ constexpr float INV127 = (float)(1.0 / 127.0);
 
 // ---------------------------------------------------------------------------
 // row_quant: one block per row of x (bf16, K <= 2048): optional LN + AdaLN,
-// the row's scale and its int8 codes.
+// the row's scale and its int8 codes. HEADS: x is (B, H, T, dh) and row
+// b * T + t gathers its K = H * dh values head by head (dh % 8 == 0, so each
+// 16-byte load lies in one head); no LN.
 // ---------------------------------------------------------------------------
 
 constexpr int RQ_THREADS = 128;
@@ -86,9 +98,10 @@ __device__ float block_max(float v, float* red) {
     return s;
 }
 
+template <bool HEADS>
 __global__ void __launch_bounds__(RQ_THREADS) row_quant_kernel(
     const __nv_bfloat16* __restrict__ x, const float* __restrict__ sc, const float* __restrict__ sh,
-    int8_t* __restrict__ xq, float* __restrict__ sx_out, int K, int T, int has_ln) {
+    int8_t* __restrict__ xq, float* __restrict__ sx_out, int K, int T, int has_ln, int dh) {
     __shared__ float red[RQ_WARPS];
     const long long row = blockIdx.x;
     const __nv_bfloat16* xr = x + row * K;
@@ -99,7 +112,12 @@ __global__ void __launch_bounds__(RQ_THREADS) row_quant_kernel(
         const int k0 = (c * RQ_THREADS + threadIdx.x) * RQ_VEC;
         live[c] = k0 < K;
         if (live[c]) {
-            const uint4 raw = *reinterpret_cast<const uint4*>(xr + k0);
+            const __nv_bfloat16* src = xr + k0;
+            if (HEADS) {  // head k0 / dh of row (b, t): x[b, k0 / dh, t, k0 % dh]
+                const long long b = row / T, t = row % T, H = K / dh;
+                src = x + ((b * H + k0 / dh) * T + t) * dh + k0 % dh;
+            }
+            const uint4 raw = *reinterpret_cast<const uint4*>(src);
             const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
             for (int j = 0; j < RQ_VEC / 2; ++j) {
@@ -383,9 +401,17 @@ extern "C" {
 // x (M, K) bf16 -> xq (M, K) int8, sx (M) f32; sc/sh (M / T, K) f32 when has_ln.
 int gsv_row_quant(const void* x, const float* sc, const float* sh, int8_t* xq, float* sx, int M, int K, int T,
                   int has_ln, void* stream) {
-    row_quant_kernel<<<M, RQ_THREADS, 0, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)x, sc, sh, xq, sx, K, T, has_ln);
+    row_quant_kernel<false><<<M, RQ_THREADS, 0, (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)x, sc, sh, xq, sx, K, T, has_ln, K);
     return (int)counted(C_ROWQ);
+}
+
+// x (M / T, K / dh, T, dh) bf16, heads in -> xq (M, K) int8 with the heads
+// merged, sx (M) f32; dh % 8 == 0.
+int gsv_row_quant_heads(const void* x, int8_t* xq, float* sx, int M, int K, int T, int dh, void* stream) {
+    row_quant_kernel<true><<<M, RQ_THREADS, 0, (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)x, nullptr, nullptr, xq, sx, K, T, 0, dh);
+    return (int)counted(C_ROWQH);
 }
 
 // K % 64 == 0, N % 128 == 0. res (M, N) bf16 and gate (M / T, N) f32, or both
@@ -396,6 +422,17 @@ int gsv_qdense(const int8_t* xq, const float* sx, const int8_t* w, const float* 
     qdense_kernel<<<grid, GEMM_THREADS, 0, (cudaStream_t)stream>>>(
         xq, sx, w, sw, bias, (const __nv_bfloat16*)res, gate, mask, (__nv_bfloat16*)out, M, N, K, T, gelu);
     return (int)counted(C_QDENSE);
+}
+
+// K4's GEMM: gsv_qdense's kernel (no gelu) on row_quant_heads' codes, counted
+// as K4's launch.
+int gsv_qdense_out(const int8_t* xq, const float* sx, const int8_t* w, const float* sw, const float* bias,
+                   const void* res, const float* gate, const float* mask, void* out, int M, int N, int K, int T,
+                   void* stream) {
+    const dim3 grid(N / BN, (M + BM - 1) / BM);
+    qdense_kernel<<<grid, GEMM_THREADS, 0, (cudaStream_t)stream>>>(
+        xq, sx, w, sw, bias, (const __nv_bfloat16*)res, gate, mask, (__nv_bfloat16*)out, M, N, K, T, 0);
+    return (int)counted(C_QOUT);
 }
 
 // three (N, K) int8 weights; cos/sin (T, dh / 2) f32; q, k, v (M / T, N / dh, T, dh) bf16.

@@ -1,5 +1,6 @@
-"""Zero-shot TTS pipeline, v2 family and v4 (port of
-gpt_sovits_tpu/infer/pipeline.py: `TTSPipeline.set_ref_audio` + `run`).
+"""Zero-shot TTS pipeline, v2 family, v3 and v4 (port of
+gpt_sovits_tpu/infer/pipeline.py: `TTSPipeline.set_ref_audio`, `run` and
+`run_streaming`).
 
   * set_ref_audio: reference wav -> 16 kHz CNHuBERT features -> VQ prompt
     semantic tokens; linear spectrogram for timbre; v2Pro/v2ProPlus also
@@ -9,19 +10,31 @@ gpt_sovits_tpu/infer/pipeline.py: `TTSPipeline.set_ref_audio` + `run`).
   * run: length-sorted greedy bucketing, batched S1 decode, one S2 decode
     per bucket, inter-fragment silence, original order restored, int16
 
-v3/v4 (a `V3Bundle`): S1 as above, then per segment `decode_encp`, all
-segments' conditioning cut into overlapping chunks behind the reference
-window, ONE batched CFM call over the chunks, ONE vocoder call, and a SOLA
-stitch (the default batched branch, pipeline.py:1037-1138). Only v4's
-HiFiGAN vocoder is ported; v3's BigVGAN, AP-BWE, the serial branch and
-streaming raise NotImplementedError (ROADMAP.md, slice 3).
+v3/v4 (a `V3Bundle`): S1 as above, then either
+  * the batched branch (the default, pipeline.py:1037-1138): per segment
+    `decode_encp`, all segments' conditioning cut into overlapping chunks
+    behind the reference window, ONE batched CFM call over the chunks, ONE
+    vocoder call, and a SOLA stitch; or
+  * the serial branch (`parallel_infer=False`, and every v3/v4 stream,
+    pipeline.py:953-1019): per segment a rolling-reference loop of B=1 CFM
+    calls, each chunk's mel and conditioning becoming the next chunk's
+    reference, then one vocoder call per segment.
+The vocoder is v4's x480 HiFiGAN `Generator` (48 kHz) or v3's x256
+`BigVGAN` (24 kHz); with an AP-BWE `sr_model`, each v3 segment is then
+super-resolved to 48 kHz unless the request passes super_sampling=False.
+
+`run_streaming` yields each segment's fragment (and the inter-fragment
+silence) in reading order as it is ready: v3/v4 through the serial branch,
+the v2 family through S1 and S2 with one batch in flight (pipeline.py:
+689-762).
 
 On a GPU the S1 step runs the CUDA kernels of ops/decode_step.py (int8
 weights and int8 KV by default, as the JAX package on an accelerator), the
-vocoder runs in bf16, and the v4 CFM runs in bf16 with the int8 DiT (the
-CUDA kernels of ops/qmatmul.py and ops/qflash.py), T padded to a multiple
-of 512; on the CPU the DiT stays float and T unpadded, as in the JAX
-package. The JAX package's TPU devices (compile-cache
+vocoder runs in bf16 (BigVGAN's anti-aliased snake through the CUDA kernel
+of ops/snake_aa.py), AP-BWE in f32, and the v3/v4 CFM in bf16 with the int8
+DiT (the CUDA kernels of ops/qmatmul.py and ops/qflash.py), T padded to a
+multiple of 512; on the CPU the DiT stays float and T unpadded, as in the
+JAX package. The JAX package's TPU devices (compile-cache
 buckets for padded shapes, the lane-folded vocoder, the cross-group
 launch/fetch overlap over a slow host link) have no counterpart here; the
 padded shapes are kept so that both packages run the same computation.
@@ -32,6 +45,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import re
+import time
 from typing import Optional
 
 from typing import Any
@@ -44,6 +58,8 @@ from gpt_sovits_tpu_torch import resolve_device
 from gpt_sovits_tpu_torch.dsp.audio_io import load_wav, resample
 from gpt_sovits_tpu_torch.dsp.mel import denorm_spec, mel_spectrogram, norm_spec, spectrogram
 from gpt_sovits_tpu_torch.dsp.sola import sola_stitch
+from gpt_sovits_tpu_torch.models.apbwe import APNetBWE, super_resolve
+from gpt_sovits_tpu_torch.models.bigvgan import BigVGAN
 from gpt_sovits_tpu_torch.models.dit import serving_dit
 from gpt_sovits_tpu_torch.models.eres2net import kaldi_fbank
 from gpt_sovits_tpu_torch.models.t2s import T2SDecoder, generate
@@ -167,19 +183,19 @@ class RefCache:
 @dataclasses.dataclass
 class V3Bundle:
     """Models and constants of the v3/v4 CFM path (TTS.py init_vocoder,
-    :601-660). The port serves v4: `vocoder` is the x480 HiFiGAN
-    `Generator` (weights loaded); v3's BigVGAN and the AP-BWE `sr_model`
-    wait for slice 3."""
+    :601-660), weights loaded: `vocoder` is v4's x480 HiFiGAN `Generator`
+    or v3's x256 `BigVGAN`; `sr_model` an optional AP-BWE `APNetBWE` (v3
+    24 kHz -> 48 kHz, TTS.py:1407-1417)."""
 
     model: SynthesizerTrnV3
-    vocoder: Any
-    mel_cfg: MelConfig  # MEL_V4 (or MEL_V3)
+    vocoder: Any  # Generator (v4) | BigVGAN (v3)
+    mel_cfg: MelConfig  # MEL_V4 / MEL_V3
     t_ref: int  # 500 (v4) / 468 (v3)
-    t_chunk: int  # serving_t_chunk(): 1024 on a card, 1000 (v4) on the CPU
+    t_chunk: int  # serving_t_chunk(): 1024 on a card, 1000 (v4) / 934 (v3) on the CPU
     out_sr: int  # 48000 (v4) / 24000 (v3)
     sample_steps: int = 32
     overlapped_len: int = 12  # SOLA overlap in mel frames (TTS.py:621,654)
-    sr_model: Any = None
+    sr_model: Optional[APNetBWE] = None
 
 
 class TTSPipeline:
@@ -234,18 +250,19 @@ class TTSPipeline:
         self.last_timing: dict = {}
 
     def _init_v3(self, on_gpu: bool):
-        """The v4 serving state (pipeline.py:302-375): the vocoder in the
-        vocoder dtype; the DiT cast to the CFM dtype and, on a card with
-        half, quantized to int8 after the cast."""
+        """The v3/v4 serving state (pipeline.py:302-375): the vocoder in the
+        vocoder dtype; AP-BWE in f32; the DiT cast to the CFM dtype and, on a
+        card with half, quantized to int8 after the cast."""
         v3 = self.v3
-        if not isinstance(v3.vocoder, Generator):
-            raise NotImplementedError(
-                "only the v4 HiFiGAN vocoder is ported; v3's BigVGAN is slice 3 (ROADMAP.md queue 1)")
-        if v3.sr_model is not None:
-            raise NotImplementedError("AP-BWE super-resolution is slice 3 (ROADMAP.md queue 1)")
+        if not isinstance(v3.vocoder, (Generator, BigVGAN)):
+            raise TypeError(f"vocoder: a Generator (v4) or a BigVGAN (v3), got {type(v3.vocoder).__name__}")
+        if v3.sr_model is not None and not isinstance(v3.sr_model, APNetBWE):
+            raise TypeError(f"sr_model: an APNetBWE, got {type(v3.sr_model).__name__}")
         v3.model.to(self.device).eval()
         voc = v3.vocoder.to(self.device).eval()
         self._voc = copy.deepcopy(voc).to(self._voc_dtype) if self.half else voc
+        if v3.sr_model is not None:
+            v3.sr_model.to(self.device).eval()
         self.dit_quant = "int8" if on_gpu and self.half else "bf16"
         self._cfm_dtype = torch.bfloat16 if self.half else torch.float32
         self._dit = serving_dit(v3.model.cfm.estimator.state_dict(), v3.model.dit_config, self._cfm_dtype,
@@ -336,6 +353,28 @@ class TTSPipeline:
     # synthesis
     # ------------------------------------------------------------------
 
+    def _sampling(self, top_k, top_p, temperature, repetition_penalty, max_sec, early_stop_num) -> dict:
+        """S1's sampling options, an explicit value (0 included) over the
+        config's default."""
+        cfg = self.cfg
+        return dict(
+            top_k=cfg.top_k if top_k is None else top_k,
+            top_p=cfg.top_p if top_p is None else top_p,
+            temperature=cfg.temperature if temperature is None else temperature,
+            repetition_penalty=cfg.repetition_penalty if repetition_penalty is None else repetition_penalty,
+            max_sec=max_sec, early_stop_num=early_stop_num,
+        )
+
+    def _super_sampling_on(self, super_sampling) -> bool:
+        return self.v3 is not None and self.v3.sr_model is not None and super_sampling is not False
+
+    def output_rate(self, super_sampling: Optional[bool] = None) -> int:
+        """The sample rate `run` returns: 32 kHz (v2 family), the vocoder's
+        (v4 48 kHz, v3 24 kHz), or AP-BWE's when it runs."""
+        if self.v3 is None:
+            return self.mel_cfg.sampling_rate
+        return self.v3.sr_model.cfg.hr_sampling_rate if self._super_sampling_on(super_sampling) else self.v3.out_sr
+
     @torch.no_grad()
     def run(
         self,
@@ -356,23 +395,18 @@ class TTSPipeline:
         split_bucket: bool = True,
         parallel_infer: bool = True,
         sample_steps: Optional[int] = None,  # v3/v4 CFM Euler steps
+        super_sampling: Optional[bool] = None,  # v3 AP-BWE 24k -> 48k when the bundle has an sr_model
         early_stop_num: Optional[int] = None,
     ) -> tuple[int, np.ndarray]:
         """Synthesize. Returns (sample_rate, int16 waveform). Phases in
-        `last_timing`: preprocess, s1, s2 (v2 family) or preprocess, s1, cfm,
-        vocoder (v4), each closed by a device sync."""
+        `last_timing`: preprocess, s1, s2 (v2 family) or preprocess, s1,
+        cfm, vocoder and, when AP-BWE runs, apbwe (v3/v4), each closed by a
+        device sync. v3/v4 with parallel_infer=False take the serial branch
+        (one segment at a time)."""
         if self.ref is None:
             raise RuntimeError("call set_ref_audio first")
-        if self.v3 is not None and not parallel_infer:
-            raise NotImplementedError("the serial v3/v4 branch (parallel_infer=False) is slice 3 (ROADMAP.md queue 1)")
         cfg = self.cfg
-        s1_kw = dict(
-            top_k=cfg.top_k if top_k is None else top_k,
-            top_p=cfg.top_p if top_p is None else top_p,
-            temperature=cfg.temperature if temperature is None else temperature,
-            repetition_penalty=cfg.repetition_penalty if repetition_penalty is None else repetition_penalty,
-            max_sec=max_sec, early_stop_num=early_stop_num,
-        )
+        s1_kw = self._sampling(top_k, top_p, temperature, repetition_penalty, max_sec, early_stop_num)
         fragment_interval = cfg.fragment_interval if fragment_interval is None else fragment_interval
         speed = snap_speed(speed)
 
@@ -402,20 +436,24 @@ class TTSPipeline:
             with timer.phase("s1"):
                 s1 = self._s1_launch(batch, gen, **s1_kw)
                 lengths = s1[0].lengths.tolist()  # host read: S1 is done
-            if self.v3 is not None:
+            if self.v3 is None:
+                with timer.phase("s2"):
+                    out = self._s2_fetch(self._s2_launch(batch, s1, max(lengths), speed=speed))
+            elif parallel_infer:
                 with timer.phase("cfm"):
                     state = self._v3_cfm(batch, s1, gen, speed=speed, sample_steps=sample_steps)
                     self._sync()
                 with timer.phase("vocoder"):
                     out = self._v3_fetch(self._v3_vocode(state))
+                out = self._apbwe(out, super_sampling, timer)
             else:
-                with timer.phase("s2"):
-                    out = self._s2_fetch(self._s2_launch(batch, s1, max(lengths), speed=speed))
+                out = list(self._v3_serial(batch, s1, gen, speed=speed, sample_steps=sample_steps,
+                                           super_sampling=super_sampling, timer=timer))
             for i, w in zip(idx, out):
                 wavs[i] = w
             self.last_tokens.update(zip(idx, lengths))
 
-        sr = self.mel_cfg.sampling_rate if self.v3 is None else self.v3.out_sr
+        sr = self.output_rate(super_sampling)
         silence = np.zeros(int(sr * fragment_interval), np.float32)
         pieces = []
         for i in range(len(segments)):
@@ -428,10 +466,80 @@ class TTSPipeline:
             print(timer.report(), f"audio:{len(audio) / sr:.2f}s")
         return sr, (audio * 32767.0).astype(np.int16)
 
-    def run_streaming(self, text: str, language: str = "en", **kwargs):
-        """Fragments as they are ready: not ported yet (ROADMAP.md queue 1,
-        slice 3)."""
-        raise NotImplementedError("run_streaming is slice 3 (ROADMAP.md queue 1)")
+    @torch.no_grad()
+    def run_streaming(
+        self,
+        text: str,
+        language: str = "en",
+        *,
+        seed: int = 0,
+        cut_method: Optional[str] = None,
+        top_k: Optional[int] = None,
+        top_p: Optional[float] = None,
+        temperature: Optional[float] = None,
+        repetition_penalty: Optional[float] = None,
+        speed: float = 1.0,
+        fragment_interval: Optional[float] = None,
+        max_sec: int = 30,
+        batch_size: Optional[int] = None,
+        parallel_infer: bool = True,
+        sample_steps: Optional[int] = None,
+        super_sampling: Optional[bool] = None,
+    ):
+        """Generator of (sample_rate, int16 fragment), one per segment in
+        reading order, each followed by the inter-fragment silence (the
+        reference's return_fragment mode, pipeline.py:689-762). Segments are
+        decoded by S1 in batches of batch_size (1 with
+        parallel_infer=False); v3/v4 then run the serial branch and yield
+        each segment when its vocoder call is done; the v2 family keeps one
+        batch in flight, its S2 launched before the next batch's S1 and
+        fetched after it. `last_ttfb` is the seconds from the call to the
+        first fragment."""
+        if self.ref is None:
+            raise RuntimeError("call set_ref_audio first")
+        cfg = self.cfg
+        t_start = time.perf_counter()
+        s1_kw = self._sampling(top_k, top_p, temperature, repetition_penalty, max_sec, None)
+        fragment_interval = cfg.fragment_interval if fragment_interval is None else fragment_interval
+        speed = snap_speed(speed)
+        bs = (batch_size or cfg.batch_size) if parallel_infer else 1
+        segments = self.preprocess(text, language, cut_method or cfg.text_split_method)
+        if not segments:
+            return
+        sr = self.output_rate(super_sampling)
+        silence = np.zeros(int(sr * fragment_interval), np.float32)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.last_tokens = {}
+        if self.v3 is not None:
+            self.last_cfm_batch = []
+        first = True
+
+        def fragment(wav):
+            nonlocal first
+            if first:
+                self.last_ttfb = time.perf_counter() - t_start
+                first = False
+            frag = np.concatenate([np.clip(wav, -1.0, 1.0), silence])
+            return sr, (frag * 32767.0).astype(np.int16)
+
+        prev = None  # v2: the batch whose S2 runs while the next batch decodes
+        for start in range(0, len(segments), bs):
+            batch = segments[start : start + bs]
+            s1 = self._s1_launch(batch, gen, **s1_kw)
+            lengths = s1[0].lengths.tolist()
+            self.last_tokens.update(zip(range(start, start + len(batch)), lengths))
+            if self.v3 is not None:
+                for wav in self._v3_serial(batch, s1, gen, speed=speed, sample_steps=sample_steps,
+                                           super_sampling=super_sampling):
+                    yield fragment(wav)
+                continue
+            if prev is not None:
+                for wav in self._s2_fetch(prev):
+                    yield fragment(wav)
+            prev = self._s2_launch(batch, s1, max(lengths), speed=speed)
+        if prev is not None:
+            for wav in self._s2_fetch(prev):
+                yield fragment(wav)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -605,3 +713,83 @@ class TTSPipeline:
             out.append(audio[off : off + total * upsample])
             off += total * upsample
         return out
+
+    def _apbwe(self, wavs, super_sampling, timer: PhaseTimer):
+        """AP-BWE on each segment's waveform (24 kHz -> 48 kHz) when the
+        bundle has an sr_model and the request did not pass
+        super_sampling=False (pipeline.py:1013-1017, :1132-1136), timed as
+        the `apbwe` phase."""
+        if not self._super_sampling_on(super_sampling):
+            return wavs
+        with timer.phase("apbwe"):
+            return [super_resolve(self.v3.sr_model, w[None], self.v3.out_sr)[0][0].cpu().numpy() for w in wavs]
+
+    # ------------------------------------------------------------------
+    # v3/v4: the serial rolling-reference branch (pipeline.py:953-1019)
+    # ------------------------------------------------------------------
+
+    def _v3_serial(self, batch, s1_state, generator, *, speed, sample_steps=None, super_sampling=None,
+                   timer: Optional[PhaseTimer] = None):
+        """One segment at a time: its rolling-reference CFM loop, one vocoder
+        call, AP-BWE when on. Yields each segment's f32 waveform as soon as it
+        is ready."""
+        out, _ = s1_state
+        lengths = out.lengths.tolist()
+        timer = timer or PhaseTimer()
+        for i, seg in enumerate(batch):
+            with timer.phase("cfm"):
+                mel, total = self._v3_serial_mel(out.tokens[i : i + 1], int(lengths[i]), seg["phones"], generator,
+                                                 speed=speed, sample_steps=sample_steps)
+                self._sync()
+            with timer.phase("vocoder"):
+                wav = self._v3_vocode_segment(mel, total)
+            yield self._apbwe([wav], super_sampling, timer)[0]
+
+    @torch.no_grad()
+    def _v3_serial_mel(self, tokens, n_tokens: int, phones, generator, *, speed, sample_steps=None):
+        """One segment's normalized mel (1, total, M) f32 and total: B=1 CFM
+        calls over t_chunk frames, each on the reference window and the next
+        chunk_len frames of conditioning; each chunk's conditioning and mel
+        become the next chunk's reference window (pipeline.py:960-1002)."""
+        v3 = self.v3
+        dev = self.device
+        fea_ref, ge, mel2, t_min = self._v3_ref_features()
+        chunk_len = v3.t_chunk - t_min
+        pids = torch.tensor([phones], dtype=torch.long, device=dev)
+        refer = torch.from_numpy(self.ref.refer_spec[None]).to(dev)
+        fea_todo, _, mel_len = v3.model.decode_encp(
+            tokens[:, : _next_bucket(n_tokens)], torch.tensor([n_tokens], device=dev), pids,
+            torch.tensor([pids.shape[1]], device=dev), refer, torch.tensor([refer.shape[1]], device=dev),
+            speed=speed, ge=ge,
+        )
+        total = int(mel_len[0])
+        mels, idx = [], 0
+        while idx < total:
+            ln = min(chunk_len, total - idx)
+            chunk = fea_todo[:, idx : idx + ln]
+            fea = F.pad(torch.cat([fea_ref, chunk], dim=1), (0, 0, 0, chunk_len - ln))
+            noise = self._cfm_noise((1, v3.t_chunk, mel2.shape[2]), generator)
+            mel_out = cfm_inference(
+                self._dit, fea.to(self._cfm_dtype), torch.tensor([t_min + ln], device=dev), mel2, noise=noise,
+                n_steps=int(sample_steps or v3.sample_steps), pad_t_to=self.pad_t_to,
+            ).float()[:, t_min : t_min + ln]
+            self.last_cfm_batch.append((1, 1))
+            mels.append(mel_out)
+            mel2 = torch.cat([mel2, mel_out], dim=1)[:, -t_min:]
+            fea_ref = torch.cat([fea_ref, chunk], dim=1)[:, -t_min:]
+            idx += ln
+        return torch.cat(mels, dim=1), total
+
+    @torch.no_grad()
+    def _v3_vocode_segment(self, mel, total: int) -> np.ndarray:
+        """One vocoder call on a segment's mel, edge-padded to a multiple of
+        256 frames (pipeline.py:1003-1012); int16 on the device, cut to
+        total * upsample samples, returned as f32."""
+        v3 = self.v3
+        upsample = v3.out_sr * v3.mel_cfg.hop_size // v3.mel_cfg.sampling_rate
+        mel = denorm_spec(mel)
+        t_pad = -mel.shape[1] % 256
+        if t_pad:
+            mel = torch.cat([mel, mel[:, -1:].expand(-1, t_pad, -1)], dim=1)
+        wav = _wav_to_i16(self._voc(mel.to(self._voc_dtype)))[0, : total * upsample, 0]
+        return wav.cpu().numpy().astype(np.float32) / 32767.0

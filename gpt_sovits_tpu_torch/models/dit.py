@@ -15,9 +15,14 @@ Two block paths, as in the JAX package:
     the fused chain of dit.py:364-457, K3 (`qkv_rope_int8`) -> K5
     (`flash_attn_int8`) -> K2 (`qdense_int8`) for the attention output,
     then K2 for ff1 and ff2, through ops/qmatmul.py and ops/qflash.py (the
-    CUDA kernels on a card, their plain twins on the CPU). For T > 2048 the
-    JAX package switches to K4 and a library flash kernel; K4 is not ported
-    yet, and such a T raises.
+    CUDA kernels on a card, their plain twins on the CPU). For T above
+    MAX_INT8_T (2048) the chain is dit.py:395-448's long-chunk branch: K3,
+    then attention in the working dtype, then K4 (`qdense_out_int8`, heads
+    in) with the mask and gated residual, then K2 for ff1 and ff2. The JAX
+    package's attention there is the library kernel
+    jax.experimental.pallas.ops.tpu.flash_attention with segment ids (real
+    frames see real frames, pads see pads); its counterpart here is
+    `scaled_dot_product_attention` with that boolean mask.
 
 Where the JAX package computes in f32 from bf16 weights (the time
 embeddings, the ConvNeXt text stack, every LayerNorm's statistics), so does
@@ -37,11 +42,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from gpt_sovits_tpu_torch.ops.qflash import flash_attn_int8
-from gpt_sovits_tpu_torch.ops.qmatmul import qdense_int8, qkv_rope_int8
+from gpt_sovits_tpu_torch.ops.qmatmul import qdense_int8, qdense_out_int8, qkv_rope_int8
 
 # reference state-dict paths (within a DiT block) of the six quantized matmuls
 _QUANT_PATHS = ("attn.to_q", "attn.to_k", "attn.to_v", "attn.to_out.0", "ff.ff.0.0", "ff.ff.2")
-MAX_INT8_T = 2048  # above it the JAX package takes K4 (qdense_out_int8), not ported yet
+MAX_INT8_T = 2048  # K5 (qflash) up to it; above it SDPA + K4 (qdense_out_int8), as the JAX package switches
 
 
 @dataclass(frozen=True)
@@ -300,20 +305,22 @@ class DiTBlock(nn.Module):
         a, f = self.attn, self.ff.ff
         ff1, ff2 = f[0][0], f[2]
         if self.int8:
-            if x.shape[1] > MAX_INT8_T:
-                raise NotImplementedError(
-                    f"int8 DiT at T={x.shape[1]} > {MAX_INT8_T} needs K4 (qdense_out_int8), "
-                    "not ported yet (ROADMAP.md queue 2, K4)")
             q, k, v = qkv_rope_int8(
                 x, a.to_q.weight, a.to_k.weight, a.to_v.weight,
                 a.to_q.weight_scale, a.to_k.weight_scale, a.to_v.weight_scale,
                 a.to_q.bias, a.to_k.bias, a.to_v.bias,
                 ln_mod=(_f32(scale_msa), _f32(shift_msa)), dim_head=c.dim_head,
             )
-            attn = flash_attn_int8(q, k, v, mask_f, sm_scale=1.0 / float(np.sqrt(c.dim_head)))
             to_out = a.to_out[0]
-            x = qdense_int8(attn, to_out.weight, to_out.weight_scale, to_out.bias,
-                            res_gate=(x, _f32(gate_msa)), mask=mask_f)
+            if x.shape[1] > MAX_INT8_T:
+                seg = None if mask is None else (mask[:, :, None] == mask[:, None, :])[:, None]
+                attn = F.scaled_dot_product_attention(q, k, v, attn_mask=seg).contiguous()
+                x = qdense_out_int8(attn, to_out.weight, to_out.weight_scale, to_out.bias,
+                                    res_gate_mask=(x, _f32(gate_msa), mask_f))
+            else:
+                attn = flash_attn_int8(q, k, v, mask_f, sm_scale=1.0 / float(np.sqrt(c.dim_head)))
+                x = qdense_int8(attn, to_out.weight, to_out.weight_scale, to_out.bias,
+                                res_gate=(x, _f32(gate_msa)), mask=mask_f)
             h1 = qdense_int8(x, ff1.weight, ff1.weight_scale, ff1.bias,
                              ln_mod=(_f32(scale_mlp), _f32(shift_mlp)), act="gelu")
             return qdense_int8(h1, ff2.weight, ff2.weight_scale, ff2.bias, res_gate=(x, _f32(gate_mlp)))

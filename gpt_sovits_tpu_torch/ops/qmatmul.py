@@ -1,16 +1,19 @@
-"""int8 DiT projections: K2 and K3, the ports of the Pallas kernels
-gpt_sovits_tpu/ops/pallas/qmatmul.py `qdense_int8` and `qkv_rope_int8`.
+"""int8 DiT projections: K2, K3 and K4, the ports of the Pallas kernels
+gpt_sovits_tpu/ops/pallas/qmatmul.py `qdense_int8`, `qkv_rope_int8` and
+`qdense_out_int8`.
 
 On CUDA tensors each wrapper launches the kernels of ``csrc/qmatmul.cu``
-(``row_quant``, then ``qdense`` or ``qkv_rope``; the note at the top of that
-file says what bounds them); on CPU tensors it takes its plain PyTorch twin
-(``qdense_int8_plain``, ``qkv_rope_int8_plain``), which is what the kernels
-are held against. There is no other route.
+(``row_quant``, then ``qdense`` or ``qkv_rope``; for K4 ``row_quant_heads``,
+then the qdense GEMM; the note at the top of that file says what bounds
+them); on CPU tensors it takes its plain PyTorch twin
+(``qdense_int8_plain``, ``qkv_rope_int8_plain``, ``qdense_out_int8_plain``),
+which is what the kernels are held against. There is no other route.
 
 Layouts: x (B, T, K) (or (T, K) for qdense), int8 weights in PyTorch's
 Linear layout (N, K) with (N,) f32 per-output-channel scales, f32 biases;
-qkv_rope returns q, k, v as (B, H, T, dim_head). The kernels take bf16
-activations and f32 scales, biases, AdaLN vectors, gates and masks.
+qkv_rope returns q, k, v as (B, H, T, dim_head), and qdense_out takes that
+heads-in layout. The kernels take bf16 activations and f32 scales, biases,
+AdaLN vectors, gates and masks.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ GEMM_TILE_K = 64  # reduction step (BK)
 MAX_K = 2048  # row_quant holds a row of at most this many values
 
 # the kernels, in the order gsv_qmm_launch_counts reports their launches
-KERNELS = ("row_quant", "qdense_int8", "qkv_rope_int8")
+KERNELS = ("row_quant", "qdense_int8", "qkv_rope_int8", "row_quant_heads", "qdense_out_int8")
 
 
 def launch_counts() -> dict:
@@ -139,6 +142,20 @@ def qkv_rope_int8_plain(x, wq, wk, wv, sq, sk, sv, bq, bk, bv, ln_mod=None, *, d
     return tuple(outs)
 
 
+def qdense_out_int8_plain(attn, wq, sw, bias, res_gate_mask=None):
+    """K4's function: attn (B, H, T, dh) with its heads merged to
+    (B, T, H*dh), then qdense_int8_plain; res_gate_mask=(res (B,T,N),
+    gate (B,N), mask (B,T) or None): y = res + gate * (mask ? y : 0).
+    Returns attn.dtype (B, T, N)."""
+    b, h, t, dh = attn.shape
+    res_gate = mask = None
+    if res_gate_mask is not None:
+        res, gate, mask = res_gate_mask
+        res_gate = (res, gate)
+    merged = attn.permute(0, 2, 1, 3).reshape(b, t, h * dh)
+    return qdense_int8_plain(merged, wq, sw, bias, res_gate=res_gate, mask=mask)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers: CUDA tensors launch the kernels, CPU tensors take the twin
 # ---------------------------------------------------------------------------
@@ -151,7 +168,9 @@ def _lib():
         lib.gsv_row_quant.argtypes = [P, P, P, P, P, I, I, I, I, P]
         lib.gsv_qdense.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P]
         lib.gsv_qkv_rope.argtypes = [P] * 16 + [I, I, I, I, I, F, P]
-        for fn in (lib.gsv_row_quant, lib.gsv_qdense, lib.gsv_qkv_rope):
+        lib.gsv_row_quant_heads.argtypes = [P, P, P, I, I, I, I, P]
+        lib.gsv_qdense_out.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, P]
+        for fn in (lib.gsv_row_quant, lib.gsv_qdense, lib.gsv_qkv_rope, lib.gsv_row_quant_heads, lib.gsv_qdense_out):
             fn.restype = ctypes.c_int
         lib.gsv_qmm_launch_counts.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
         lib.gsv_qmm_launch_counts.restype = None
@@ -302,3 +321,45 @@ def qkv_rope_int8(x, wq, wk, wv, sq, sk, sv, bq, bk, bv, ln_mod=None, *, dim_hea
     )
     raise_on(rc, "qkv_rope_int8")
     return q, k_, v
+
+
+def qdense_out_int8(attn, wq, sw, bias, res_gate_mask=None):
+    """K4. See qdense_out_int8_plain for the function; on CUDA: attn bf16
+    (B, H, T, dh) with dh % 8 == 0, wq int8 (N, H*dh), sw/bias f32 (N,),
+    res bf16 (B, T, N), gate f32 (B, N), mask f32 (B, T) or None; returns
+    bf16 (B, T, N)."""
+    card = on_card(attn)
+    b, h, t, dh = attn.shape
+    k = h * dh
+    n = wq.shape[0]
+    dev = attn.device
+    _check_gemm(k, n)
+    if dh % 8:
+        raise ValueError(f"qdense_out_int8 takes dim_head a multiple of 8, got {dh}")
+    check("attn", attn, torch.bfloat16, (b, h, t, dh), dev, card)
+    check("wq", wq, torch.int8, (n, k), dev, card)
+    check("sw", sw, torch.float32, (n,), dev, card)
+    check("bias", bias, torch.float32, (n,), dev, card)
+    res = gate = mask = None
+    if res_gate_mask is not None:
+        res, gate, mask = res_gate_mask
+        check("res", res, torch.bfloat16, (b, t, n), dev, card)
+        check("gate", gate, torch.float32, (b, n), dev, card)
+        if mask is not None:
+            check("mask", mask, torch.float32, (b, t), dev, card)
+    if not card:
+        return qdense_out_int8_plain(attn, wq, sw, bias, res_gate_mask)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _lib()
+    xq = torch.empty((b * t, k), dtype=torch.int8, device=dev)
+    sx = torch.empty((b * t,), dtype=torch.float32, device=dev)
+    raise_on(lib.gsv_row_quant_heads(attn.data_ptr(), xq.data_ptr(), sx.data_ptr(), b * t, k, t, dh, stream),
+             "row_quant_heads")
+    out = torch.empty((b, t, n), dtype=torch.bfloat16, device=dev)
+    rc = lib.gsv_qdense_out(
+        xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), sw.data_ptr(), bias.data_ptr(),
+        res.data_ptr() if res is not None else None, gate.data_ptr() if gate is not None else None,
+        mask.data_ptr() if mask is not None else None, out.data_ptr(), b * t, n, k, t, stream,
+    )
+    raise_on(rc, "qdense_out_int8")
+    return out

@@ -1,0 +1,161 @@
+"""Anti-aliased snakeβ activation: K6, the port of the Pallas kernels
+gpt_sovits_tpu/ops/pallas/snake_aa.py `snake_aa_fused` (K6) and
+`snake_aa_folded` (K7, the same function on the TPU's lane-folded layout).
+
+BigVGAN's `Activation1d` (reference alias_free_activation/torch/act.py):
+x2 kaiser-sinc upsample over replicate-padded x, snakeβ
+x + sin²(a·x) / (b + 1e-9), x2 downsample over the replicate-padded snaked
+stream. On CUDA tensors `snake_aa` launches the kernel of
+``csrc/snake_aa.cu`` (the note at the top of that file says what bounds it);
+on CPU tensors it takes its plain twin `snake_aa_plain`, the three-step
+composition in f32, which is what the kernel is held against. There is no
+other route.
+
+Layout: PyTorch's conv layout x (B, C, T), bf16 or f32, with per-channel
+alpha and beta (C,) f32; the result has x's shape and dtype, computed in
+f32. The resampling filters (`kaiser_sinc_filter1d`, `upsample1d`,
+`downsample1d`) are this package's copies of gpt_sovits_tpu/models/
+bigvgan.py's.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from gpt_sovits_tpu_torch.ops import build
+from gpt_sovits_tpu_torch.ops.qmatmul import check, on_card, raise_on
+
+TAPS = 12  # filter taps of the x2 resampling (csrc/snake_aa.cu TAPS)
+KERNELS = ("snake_aa",)
+
+
+def launch_counts() -> dict:
+    """Launches since the last reset, as the CUDA code counts them. Zero
+    while the library is not loaded."""
+    lib = build.loaded("snake_aa")
+    if lib is None:
+        return dict.fromkeys(KERNELS, 0)
+    out = (ctypes.c_longlong * len(KERNELS))()
+    lib.gsv_snake_launch_counts(out)
+    return dict(zip(KERNELS, out))
+
+
+def reset_launch_counts() -> None:
+    lib = build.loaded("snake_aa")
+    if lib is not None:
+        lib.gsv_snake_reset_launch_counts()
+
+
+# ---------------------------------------------------------------------------
+# plain twin
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=8)
+def kaiser_sinc_filter1d(cutoff: float, half_width: float, kernel_size: int) -> np.ndarray:
+    """Kaiser-windowed sinc low-pass (reference alias_free_activation/torch/
+    filter.py:33), f32."""
+    even = kernel_size % 2 == 0
+    half_size = kernel_size // 2
+    delta_f = 4 * half_width
+    a = 2.285 * (half_size - 1) * np.pi * delta_f + 7.95
+    if a > 50.0:
+        beta = 0.1102 * (a - 8.7)
+    elif a >= 21.0:
+        beta = 0.5842 * (a - 21) ** 0.4 + 0.07886 * (a - 21.0)
+    else:
+        beta = 0.0
+    window = np.kaiser(kernel_size, beta)
+    time = np.arange(-half_size, half_size) + 0.5 if even else np.arange(kernel_size) - half_size
+    if cutoff == 0:
+        return np.zeros(kernel_size, dtype=np.float32)
+    filt = 2 * cutoff * window * np.sinc(2 * cutoff * time)
+    return (filt / filt.sum()).astype(np.float32)
+
+
+def _taps(ratio: int, like: torch.Tensor):
+    ks = int(6 * ratio // 2) * 2
+    filt = torch.from_numpy(kaiser_sinc_filter1d(0.5 / ratio, 0.6 / ratio, ks)).to(like.device, like.dtype)
+    return ks, filt.view(1, 1, ks).expand(like.shape[1], 1, ks)
+
+
+def upsample1d(x: torch.Tensor, ratio: int = 2) -> torch.Tensor:
+    """Anti-aliased x ratio upsample of (B, C, T) (reference resample.py:10-30)."""
+    ks, w = _taps(ratio, x)
+    pad = ks // ratio - 1
+    pad_left = pad * ratio + (ks - ratio) // 2
+    pad_right = pad * ratio + (ks - ratio + 1) // 2
+    y = ratio * F.conv_transpose1d(F.pad(x, (pad, pad), mode="replicate"), w, stride=ratio, groups=x.shape[1])
+    return y[..., pad_left : y.shape[-1] - pad_right]
+
+
+def downsample1d(x: torch.Tensor, ratio: int = 2) -> torch.Tensor:
+    """Anti-aliased / ratio downsample of (B, C, T) (reference resample.py:33-46)."""
+    ks, w = _taps(ratio, x)
+    pad_left, pad_right = ks // 2 - int(ks % 2 == 0), ks // 2
+    return F.conv1d(F.pad(x, (pad_left, pad_right), mode="replicate"), w, stride=ratio, groups=x.shape[1])
+
+
+def snake_beta(x, alpha, beta, logscale: bool = True):
+    """x + sin²(a·x) / (b + 1e-9) on (B, C, T), per-channel a, b
+    (reference activations.py:63-121)."""
+    a = torch.exp(alpha) if logscale else alpha
+    b = torch.exp(beta) if logscale else beta
+    return x + (1.0 / (b[:, None] + 1e-9)) * torch.sin(x * a[:, None]) ** 2
+
+
+def snake_aa_plain(x, alpha, beta, *, logscale: bool = True):
+    """upsample1d -> snake_beta -> downsample1d in f32; returns x.dtype."""
+    h = snake_beta(upsample1d(x.float()), alpha.float(), beta.float(), logscale)
+    return downsample1d(h).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrapper: CUDA tensors launch the kernel, CPU tensors take the twin
+# ---------------------------------------------------------------------------
+
+
+def _lib():
+    lib = build.load("snake_aa")
+    if not getattr(lib, "_gsv_typed", False):
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.gsv_snake_aa.argtypes = [P, P, P, P, L, I, I, I, I, ctypes.POINTER(ctypes.c_float), P]
+        lib.gsv_snake_aa.restype = ctypes.c_int
+        lib.gsv_snake_launch_counts.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+        lib.gsv_snake_launch_counts.restype = None
+        lib.gsv_snake_reset_launch_counts.argtypes = []
+        lib.gsv_snake_reset_launch_counts.restype = None
+        lib._gsv_typed = True
+    return lib
+
+
+_TAPS_C = (ctypes.c_float * TAPS)(*kaiser_sinc_filter1d(0.25, 0.3, TAPS).tolist())
+
+
+def snake_aa(x, alpha, beta, *, logscale: bool = True):
+    """K6. See snake_aa_plain for the function; on CUDA: x bf16 or f32
+    (B, C, T), alpha and beta f32 (C,); returns x's dtype."""
+    card = on_card(x)
+    if x.ndim != 3 or x.shape[-1] < 1:
+        raise ValueError(f"x: expected (B, C, T) with T >= 1, got {tuple(x.shape)}")
+    b, c, t = x.shape
+    dev = x.device
+    check("x", x, x.dtype, (b, c, t), dev, card)
+    check("alpha", alpha, torch.float32, (c,), dev, card)
+    check("beta", beta, torch.float32, (c,), dev, card)
+    if not card:
+        return snake_aa_plain(x, alpha, beta, logscale=logscale)
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x: dtype {x.dtype}, expected bfloat16 or float32")
+    y = torch.empty_like(x)
+    rc = _lib().gsv_snake_aa(
+        x.data_ptr(), alpha.data_ptr(), beta.data_ptr(), y.data_ptr(), b * c, c, t, int(logscale),
+        int(x.dtype == torch.bfloat16), _TAPS_C, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    raise_on(rc, "snake_aa")
+    return y

@@ -255,6 +255,58 @@ def vocoder_v4_from_jax(params: dict, cfg) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# v3: the BigVGAN vocoder and AP-BWE
+# ---------------------------------------------------------------------------
+
+
+def bigvgan_from_jax(params: dict, cfg) -> dict:
+    """models/bigvgan.py BigVGAN (cfg: its BigVGANConfig) under the names
+    that models/bigvgan.py:202 `params_from_torch` reads (the reference
+    checkpoint's), weights plain."""
+    p = params["params"]
+    out: dict = {}
+    _conv(p["conv_pre"], "conv_pre", out)
+    n_k = len(cfg.resblock_kernel_sizes)
+    for i in range(len(cfg.upsample_rates)):
+        up = p[f"up_{i}"]
+        out[f"ups.{i}.0.weight"] = _t(np.asarray(up["kernel"]).transpose(1, 2, 0))  # (k,in,out)->(in,out,k)
+        out[f"ups.{i}.0.bias"] = _t(up["bias"])
+        for j in range(n_k):
+            rb, pre = p[f"resblock_{i}_{j}"], f"resblocks.{i * n_k + j}"
+            for d in range(len(cfg.resblock_dilation_sizes[j])):
+                _conv(rb[f"c1_{d}"], f"{pre}.convs1.{d}", out)
+                _conv(rb[f"c2_{d}"], f"{pre}.convs2.{d}", out)
+                for a, act in ((2 * d, "act1"), (2 * d + 1, "act2")):  # stored interleaved
+                    out[f"{pre}.activations.{a}.act.alpha"] = _t(rb[f"{act}_{d}"]["alpha"])
+                    out[f"{pre}.activations.{a}.act.beta"] = _t(rb[f"{act}_{d}"]["beta"])
+    out["activation_post.act.alpha"] = _t(p["activation_post"]["alpha"])
+    out["activation_post.act.beta"] = _t(p["activation_post"]["beta"])
+    _conv(p["conv_post"], "conv_post", out)
+    return out
+
+
+def apbwe_from_jax(params: dict, cfg) -> dict:
+    """models/apbwe.py APNetBWE (cfg: its APBWEConfig) under the names that
+    models/apbwe.py:134 `params_from_torch` reads (the reference's)."""
+    p = params["params"]
+    out: dict = {}
+    for s in ("mag", "pha"):
+        _conv(p[f"conv_pre_{s}"], f"conv_pre_{s}", out)
+        _ln(p[f"norm_pre_{s}"], f"norm_pre_{s}", out)
+        for i in range(cfg.layers):
+            blk, pre = p[f"convnext_{s}_{i}"], f"convnext_{s}.{i}"
+            _conv(blk["dwconv"], f"{pre}.dwconv", out)
+            _ln(blk["norm"], f"{pre}.norm", out)
+            _dense(blk["pwconv1"], f"{pre}.pwconv1", out)
+            _dense(blk["pwconv2"], f"{pre}.pwconv2", out)
+            out[f"{pre}.gamma"] = _t(np.asarray(blk["gamma"]).reshape(-1))
+        _ln(p[f"norm_post_{s}"], f"norm_post_{s}", out)
+    for nm in ("linear_post_mag", "linear_post_pha_r", "linear_post_pha_i"):
+        _dense(p[nm], nm, out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # CNHuBERT (HF HubertModel names)
 # ---------------------------------------------------------------------------
 

@@ -10,6 +10,13 @@ package's (gpt_sovits_tpu/models/dit.py) at a tiny size, same weights
     pltpu.force_tpu_interpret_mode(), T = 512); bar: mean relative error
     <= 0.01 over real frames (the JAX fused and XLA int8 paths differ by
     ~0.002 there);
+  * the int8 DiT's long-chunk branch (T > MAX_INT8_T: K3 -> attention ->
+    K4 `qdense_out_int8` -> K2) against the JAX package's (dit.py:395-448:
+    K3 -> the library flash_attention with segment ids -> qdense_out_int8),
+    at the same bar. To keep it small the switch point is lowered on both
+    sides: the port's MAX_INT8_T is patched to 256 and the JAX side runs
+    with GPT_SOVITS_NO_QFLASH set, which sends its T = 512 to the same
+    branch;
   * quantize_dit_params: int8 codes and f32 scales equal."""
 
 import dataclasses
@@ -123,14 +130,34 @@ def test_int8_dit_matches_jax_fused_chain(params, monkeypatch):
     assert _rel_real(got, ref) > 1e-4
 
 
-def test_int8_dit_raises_beyond_k2_k5(params):
-    """T > 2048 takes K4 in the JAX package, which is not ported."""
-    dit = _port(params, "int8")
-    t = 2049
-    z = torch.zeros((1, t, CFG["mel_dim"]))
-    with pytest.raises(NotImplementedError, match="K4"):
-        dit(z, z, torch.zeros(1), torch.zeros(1), torch.zeros((1, t, CFG["text_dim"])),
-            torch.ones((1, t), dtype=torch.bool))
+def test_int8_dit_long_chunk_branch_matches_jax(params, monkeypatch):
+    from gpt_sovits_tpu_torch.models import dit as pdit
+
+    inputs = _inputs(seed=4)
+    jq = JDiT(JCfg(**CFG, quant="int8"))
+    qparams = j_quantize(params)
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setenv("GPT_SOVITS_NO_QFLASH", "1")
+    with pltpu.force_tpu_interpret_mode():
+        want, _ = jq.apply(qparams, *(jnp.asarray(a) for a in inputs))
+    monkeypatch.undo()
+    calls = {"k4": 0, "k5": 0}
+    k4, k5 = pdit.qdense_out_int8, pdit.flash_attn_int8
+
+    def count(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(pdit, "MAX_INT8_T", 256)
+    monkeypatch.setattr(pdit, "qdense_out_int8", count("k4", k4))
+    monkeypatch.setattr(pdit, "flash_attn_int8", count("k5", k5))
+    got, _ = _run_port(_port(params, "int8"), inputs)
+    assert calls == {"k4": CFG["depth"], "k5": 0}
+    rel = _rel_real(got, np.asarray(want))
+    print("int8 DiT long-chunk branch vs the JAX one, mean relative error over real frames:", rel)
+    assert rel <= 0.01, rel
 
 
 def test_quantize_dit_params_equals_jax(params):

@@ -1,5 +1,6 @@
-"""The PyTorch port and chip_smoke.py stand alone: they import with jax and
-flax blocked, and no file of theirs imports jax, flax or the JAX package."""
+"""The PyTorch port, chip_smoke.py and broken_copies.py stand alone: they
+import with jax and flax blocked, and no file of theirs imports jax, flax or
+the JAX package."""
 
 import ast
 import os
@@ -9,7 +10,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "gpt_sovits_tpu_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "broken_copies.py"]
 BANNED = ("jax", "jaxlib", "flax", "gpt_sovits_tpu")
 
 _BLOCKER = """
@@ -25,7 +26,7 @@ import gpt_sovits_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(gpt_sovits_tpu_torch.__path__, "gpt_sovits_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
-import chip_smoke
+import chip_smoke, broken_copies
 assert not any(k.split(".")[0] in {banned!r} for k in sys.modules), [k for k in sys.modules if k.startswith(("jax", "flax"))]
 print("OK", len(mods), " ".join(mods))
 """
@@ -37,8 +38,9 @@ def test_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.startswith("OK")
-    assert int(res.stdout.split()[1]) >= 20  # every module of both slices was imported
-    for mod in ("models.dit", "models.v3", "ops.qmatmul", "ops.qflash", "dsp.sola"):
+    assert int(res.stdout.split()[1]) >= 23  # every module of the three slices was imported
+    for mod in ("models.dit", "models.v3", "ops.qmatmul", "ops.qflash", "dsp.sola", "models.bigvgan", "models.apbwe",
+                "ops.snake_aa"):
         assert f"gpt_sovits_tpu_torch.{mod}" in res.stdout, mod
 
 

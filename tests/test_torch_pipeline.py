@@ -152,3 +152,22 @@ def test_unported_languages_raise(pipes):
     for lang in ("zh", "ja", "auto"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pp.run("text", lang)
+
+
+def test_run_streaming_matches_jax_and_run(pipes):
+    """run_streaming (S1 and S2 with one batch in flight): each fragment
+    within LSB of the JAX package's, and the fragments, each followed by the
+    inter-fragment silence, equal to run(split_bucket=False) of the same
+    seed."""
+    jp, pp = pipes
+    frags_j = list(jp.run_streaming(TEXT, "en", batch_size=1, **RUN))
+    frags_p = list(pp.run_streaming(TEXT, "en", batch_size=1, **RUN))
+    assert len(frags_p) == len(frags_j) == 2 and pp.last_ttfb > 0
+    for (sr_p, fp), (sr_j, fj) in zip(frags_p, frags_j):
+        assert sr_p == sr_j == MEL["sampling_rate"] and fp.dtype == np.int16 and fp.shape == fj.shape
+        assert np.abs(fp.astype(np.int32) - fj.astype(np.int32)).max() <= LSB
+    streamed = np.concatenate([f for _, f in frags_p])
+    _, whole = pp.run(TEXT, "en", split_bucket=False, batch_size=1, **RUN)
+    silence = int(MEL["sampling_rate"] * pp.cfg.fragment_interval)
+    np.testing.assert_array_equal(streamed[: len(whole)], whole)
+    assert len(streamed) == len(whole) + silence and not streamed[len(whole):].any()

@@ -3,7 +3,9 @@ HiFiGAN vocoder + CNHuBERT, built as tests/test_pipeline_v3.py builds its
 pipeline), with the same weights, reference and text, in f32 with greedy S1
 and the same CFM noise fed to both sides: prompt codes and S1 tokens equal,
 output rate and length equal, the int16 waveform within a stated number of
-LSB.
+LSB, on the batched branch, the serial branch and `run_streaming` (the
+serial branch's JAX side and noise hooks are tests/test_torch_pipeline_v3.py's).
+A V3Bundle also takes v3's BigVGAN as its vocoder.
 
 The JAX pipeline maps the reference transcript's phone ids through the
 symbol table a second time (`_v3_ref_features`), which turns every id into
@@ -27,12 +29,14 @@ from gpt_sovits_tpu.models.vits import Generator as JGen
 from gpt_sovits_tpu.text.cleaner import clean_text as j_clean_text
 from gpt_sovits_tpu.utils import config as jconfig
 from gpt_sovits_tpu_torch.infer.pipeline import TTSPipeline, V3Bundle
+from gpt_sovits_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig
 from gpt_sovits_tpu_torch.models.hubert import HubertConfig, HubertEncoder
 from gpt_sovits_tpu_torch.models.t2s import T2SDecoder
 from gpt_sovits_tpu_torch.models.v3 import SynthesizerTrnV3
 from gpt_sovits_tpu_torch.models.vits import Generator
 from gpt_sovits_tpu_torch.utils import config as pconfig
 from gpt_sovits_tpu_torch.weights import hubert_from_jax, s1_from_jax, s2v3_from_jax, vocoder_v4_from_jax
+from test_torch_pipeline_v3 import jax_serial_noise, jax_serial_run
 
 torch.set_num_threads(1)
 
@@ -160,13 +164,45 @@ def test_run_waveform_within_lsb(pipes, monkeypatch):
     assert all(bs >= 1 and bs_pad >= bs for bs, bs_pad in pp.last_cfm_batch) and len(pp.last_cfm_batch) == 2
 
 
-def test_unported_branches_raise(pipes):
+def test_serial_run_within_lsb(pipes, monkeypatch):
+    jp, pp = pipes
+    sr_j, wj = jax_serial_run(jp, TEXT, **RUN)
+    state = jax_serial_noise(pp, monkeypatch, RUN["seed"])
+    sr_p, wp = pp.run(TEXT, "en", parallel_infer=False, **RUN)
+    assert state["n"] == len(pp.last_cfm_batch) > 3 and sr_p == sr_j == BUNDLE["out_sr"]
+    assert wp.shape == wj.shape and np.abs(wj.astype(np.int32)).max() > 100
+    assert np.abs(wp.astype(np.int32) - wj.astype(np.int32)).max() <= LSB
+
+
+def test_streaming_within_lsb(pipes, monkeypatch):
+    jp, pp = pipes
+    frags_j = list(jp.run_streaming(TEXT, "en", **RUN))
+    jax_serial_noise(pp, monkeypatch, RUN["seed"])
+    frags_p = list(pp.run_streaming(TEXT, "en", **RUN))
+    assert len(frags_p) == len(frags_j) == 3 and pp.last_ttfb > 0
+    for (sr_p, fp), (sr_j, fj) in zip(frags_p, frags_j):
+        assert sr_p == sr_j == BUNDLE["out_sr"] and fp.shape == fj.shape
+        assert np.abs(fp.astype(np.int32) - fj.astype(np.int32)).max() <= LSB
+
+
+def test_bigvgan_vocoder_bundle(pipes):
+    """A V3Bundle takes a BigVGAN vocoder (x16 here, as the mel's hop to the
+    output rate asks); anything else is refused."""
     _, pp = pipes
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        pp.run(TEXT, "en", parallel_infer=False)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        pp.run_streaming(TEXT, "en")
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    voc = BigVGAN(BigVGANConfig(num_mels=20, upsample_rates=(4, 4), upsample_kernel_sizes=(8, 8),
+                                upsample_initial_channel=32, resblock_kernel_sizes=(3,),
+                                resblock_dilation_sizes=((1, 3),)))
+    bp = TTSPipeline(s1_model=pp.s1, s2_model=None, hubert_model=pp.hubert, device="cpu",
+                     infer_cfg=pp.cfg, mel_cfg=pp.mel_cfg,
+                     v3_bundle=V3Bundle(model=pp.v3.model, vocoder=voc, mel_cfg=pp.v3.mel_cfg, **BUNDLE),
+                     use_fused_s1=False, s1_weight_quant="bf16", s1_kv_quant="bf16", half=False)
+    bp.ref = pp.ref
+    sr, wav = bp.run(TEXT, "en", **RUN)
+    up = BUNDLE["out_sr"] * bp.v3.mel_cfg.hop_size // bp.v3.mel_cfg.sampling_rate
+    silence = int(sr * bp.cfg.fragment_interval)
+    assert sr == BUNDLE["out_sr"] and wav.dtype == np.int16
+    assert len(wav) == sum(bp._mel_len_for(n, 1.0) * up for n in bp.last_tokens.values()) + 2 * silence
+    with pytest.raises(TypeError, match="vocoder"):
         TTSPipeline(s1_model=pp.s1, s2_model=None, hubert_model=pp.hubert, device="cpu",
                     v3_bundle=V3Bundle(model=pp.v3.model, vocoder=object(), mel_cfg=pp.v3.mel_cfg, **BUNDLE))
 

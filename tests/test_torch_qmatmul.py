@@ -1,4 +1,5 @@
-"""K2 (`qdense_int8`) and K3 (`qkv_rope_int8`): the port's plain twins
+"""K2 (`qdense_int8`), K3 (`qkv_rope_int8`) and K4 (`qdense_out_int8`): the
+port's plain twins
 (gpt_sovits_tpu_torch/ops/qmatmul.py, what the CUDA kernels are held against
 on the card) against the Pallas kernels of gpt_sovits_tpu/ops/pallas/
 qmatmul.py run in interpret mode on the CPU, at the JAX tests' bar
@@ -13,6 +14,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from gpt_sovits_tpu.ops.pallas.qmatmul import qdense_int8 as j_qdense
+from gpt_sovits_tpu.ops.pallas.qmatmul import qdense_out_int8 as j_qdense_out
 from gpt_sovits_tpu.ops.pallas.qmatmul import qkv_rope_int8 as j_qkv
 from gpt_sovits_tpu_torch.ops import qmatmul
 
@@ -112,6 +114,49 @@ def test_qkv_rope_twin_matches_pallas(ln):
     q_plain = qmatmul.qdense_int8(torch.from_numpy(x), *tw[0], ln_mod=pln)
     np.testing.assert_allclose(flat[..., dh:].numpy(), q_plain[..., dh:].numpy(), rtol=0, atol=1e-5)
     assert float((flat[:, 50:, :dh] - q_plain[:, 50:, :dh]).abs().max()) > 0.1
+
+
+# K4's epilogue variants: (res_gate, mask); res_gate_mask may be None, and so may its mask
+@pytest.mark.parametrize("variant", ["plain", "res_gate", "res_gate_mask"])
+def test_qdense_out_twin_matches_pallas(variant):
+    """Heads in, at heads of very different scales (the row scale is the max
+    over heads, so a head-order or layout fault moves the output)."""
+    rng = np.random.default_rng({"plain": 21, "res_gate": 22, "res_gate_mask": 23}[variant])
+    b, heads, t, dh, n = 2, 4, 64, 32, 128
+    k = heads * dh
+    attn = (rng.standard_normal((b, heads, t, dh)) * np.array([0.1, 1.0, 5.0, 0.5])[None, :, None, None])
+    attn = attn.astype(np.float32)
+    wq, s, bias = _weights(rng, k, n)
+    res = rng.standard_normal((b, t, n)).astype(np.float32)
+    gate = (rng.standard_normal((b, n)) * 0.5).astype(np.float32)
+    mask = (np.arange(t)[None, :] < np.array([50, 64])[:, None]).astype(np.float32)
+    jrg = prg = None
+    if variant != "plain":
+        m = mask if variant == "res_gate_mask" else None
+        jrg = (jnp.asarray(res), jnp.asarray(gate), None if m is None else jnp.asarray(m))
+        prg = (torch.from_numpy(res), torch.from_numpy(gate), None if m is None else torch.from_numpy(m))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(j_qdense_out(jnp.asarray(attn), jnp.asarray(wq), jnp.asarray(s), jnp.asarray(bias),
+                                       res_gate_mask=jrg, block_m=32))
+    got = qmatmul.qdense_out_int8(torch.from_numpy(attn), *_torch_w(wq, s, bias), res_gate_mask=prg)
+    assert got.shape == (b, t, n) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    if variant == "res_gate_mask":  # pad rows carry the residual alone
+        np.testing.assert_allclose(got.numpy()[0, 50:], res[0, 50:], rtol=0, atol=1e-6)
+    # merging the heads in another order is far off
+    swapped = qmatmul.qdense_out_int8(torch.from_numpy(attn[:, ::-1].copy()), *_torch_w(wq, s, bias), res_gate_mask=prg)
+    assert float((swapped - got).abs().max()) > 1.0
+
+
+def test_qdense_out_checks_the_layout_on_the_cpu():
+    attn = torch.zeros((1, 4, 8, 32))
+    w = (torch.zeros((128, 128), dtype=torch.int8), torch.ones(128), torch.zeros(128))
+    with pytest.raises(ValueError, match="contiguous"):
+        qmatmul.qdense_out_int8(torch.zeros((1, 8, 4, 32)).transpose(1, 2), *w)
+    with pytest.raises(ValueError, match="shape"):
+        qmatmul.qdense_out_int8(attn, *w, res_gate_mask=(torch.zeros((1, 8, 64)), torch.zeros((1, 128)), None))
+    with pytest.raises(ValueError, match="dim_head"):
+        qmatmul.qdense_out_int8(torch.zeros((1, 32, 8, 4)), *w)
 
 
 def test_kernel_wrappers_take_the_twin_only_on_cpu():
