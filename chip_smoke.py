@@ -29,7 +29,9 @@ transcript, then a batched request at 24 kHz, a serial one with AP-BWE at
 48 kHz and a streamed one, through S1, the int8 DiT CFM, BigVGAN and
 AP-BWE; launch counts from the CUDA code: 109 snake_aa a vocoder call, the
 v4 counts a CFM call), v3_profile (one BigVGAN and one AP-BWE call under
-the profiler), cfm_long (one CFM call at T=2560 through K3 -> SDPA
+the profiler), snake_in_call (K6's 109 launches inside one BigVGAN call
+under the profiler, and the device time its twins take in their place),
+cfm_long (one CFM call at T=2560 through K3 -> SDPA
 -> K4 -> K2 and through the twins); then the `kernels` summary line, the
 card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Bounds use the H100 SXM's
@@ -366,11 +368,12 @@ def profile_steps(fn, steps: int = 5) -> dict:
     evs = device_events(fn, steps)
     if evs is None:
         return {"wall_ms_per_step": wall, "device_ms_per_step": None, "device_idle_share": None}
-    by_name = {
-        ev.key[:60]: {"device_ms_per_step": ev.self_device_time_total / 1e3 / steps, "calls_per_step": ev.count / steps}
-        for ev in evs
-    }
-    busy = sum(v["device_ms_per_step"] for v in by_name.values())
+    by_name = {}  # kernels whose names share their first 60 characters are added up
+    for ev in evs:
+        row = by_name.setdefault(ev.key[:60], {"device_ms_per_step": 0.0, "calls_per_step": 0.0})
+        row["device_ms_per_step"] += ev.self_device_time_total / 1e3 / steps
+        row["calls_per_step"] += ev.count / steps
+    busy = sum(ev.self_device_time_total for ev in evs) / 1e3 / steps
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1]["device_ms_per_step"])[:8])
     return {"wall_ms_per_step": wall, "device_ms_per_step": busy,
             "device_idle_share": max(0.0, 1.0 - busy / wall), "top_kernels": top}
@@ -762,7 +765,9 @@ V3_MEL = 2224
 V3_STAGES = tuple((1536 // 2 ** (i + 1), V3_MEL * int(np.prod((4, 4, 2, 2, 2, 2)[: i + 1]))) for i in range(6))
 V3_SNAKES_PER_STAGE = 18  # 3 resblocks x 3 dilations x 2 activations
 SNAKE_PER_CALL = V3_SNAKES_PER_STAGE * len(V3_STAGES) + 1  # 109 launches per BigVGAN call
-SNAKE_OPS = 82  # f32 operations an output: 24 FMAs for two upsampled samples, 2 x (sin, square, 2 mul/add), 12 FMAs
+# f32 operations an output, an FMA counted as two: 6 FMAs for each of two
+# upsampled samples, two snakes (a u, sin, square, one FMA), 12 FMAs for y
+SNAKE_OPS = 2 * 6 * 2 + 2 * 5 + 12 * 2
 SNAKE_SRC = "gpt_sovits_tpu_torch/csrc/snake_aa.cu"
 SNAKE_REPLACES = "gpt_sovits_tpu/ops/pallas/snake_aa.py:428 (K6 snake_aa_fused; also :301, K7 snake_aa_folded)"
 K4_REPLACES = "gpt_sovits_tpu/ops/pallas/qmatmul.py:346"
@@ -869,18 +874,6 @@ def v3_kernel_phase(seed: int) -> dict:
     return rows
 
 
-def snake_per_call(rows: dict) -> dict:
-    """The 109 launches of one BigVGAN call on a 2224-frame mel in bf16,
-    summed from the per-stage rows (18 a stage, one more at the last)."""
-    per = [(V3_SNAKES_PER_STAGE + (i == len(V3_STAGES) - 1), rows[("snake_aa", torch.bfloat16, c)])
-           for i, (c, _) in enumerate(V3_STAGES)]
-    out = {k: sum(n * r[k] for n, r in per) for k in ("ms", "plain_ms", "bound_ms")}
-    out["bound_by"] = per[-1][1]["bound_by"]
-    out["max_abs_err"] = max(r["held"]["max_abs_err"] for _, r in per)
-    out["timer"] = per[-1][1]["timer"]
-    return out
-
-
 def build_v3_pipeline(seed: int):
     """v3 at full width, random weights from the seed: S1Config(), the v3
     SynthesizerTrnV3 (DiT 22 x 1024, 16 heads), BigVGAN (1536 channels,
@@ -975,19 +968,86 @@ def path_v3_phase(pipe, seed: int) -> dict:
     return calls
 
 
+def _v3_mel(pipe, seed: int) -> torch.Tensor:
+    """A 2224-frame mel in the vocoder's dtype, from the seed."""
+    g = torch.Generator(device=pipe.device).manual_seed(seed + 50)
+    mel = (2.0 * torch.randn((1, V3_MEL, pipe.v3.mel_cfg.num_mels), generator=g, device=pipe.device) - 6.0)
+    return mel.to(pipe._voc_dtype)
+
+
 def v3_layer_profiles(pipe, seed: int) -> dict:
     """One BigVGAN call on a 2224-frame mel (bf16) and one AP-BWE call on
     10 s of 24 kHz audio, under the profiler: device time by kernel and the
     share of the wall time the device sat idle."""
     from gpt_sovits_tpu_torch.models.apbwe import super_resolve
 
-    g = torch.Generator(device=pipe.device).manual_seed(seed + 50)
-    mel = (2.0 * torch.randn((1, V3_MEL, pipe.v3.mel_cfg.num_mels), generator=g, device=pipe.device) - 6.0)
-    mel = mel.to(pipe._voc_dtype)
+    mel = _v3_mel(pipe, seed)
     wav = (0.1 * np.random.default_rng(seed).standard_normal((1, 240000))).astype(np.float32)
     with torch.no_grad():
         return {"bigvgan_2224_frames": profile_steps(lambda i: pipe._voc(mel), steps=2),
                 "apbwe_10s": profile_steps(lambda i: super_resolve(pipe.v3.sr_model, wav, 24000), steps=2)}
+
+
+class twins_in_bigvgan:
+    """Within the block, BigVGAN's snakes run the plain twin (a comparison
+    run: no K6 launch)."""
+
+    def __enter__(self):
+        from gpt_sovits_tpu_torch.models import bigvgan
+        from gpt_sovits_tpu_torch.ops import snake_aa as sa
+
+        self.saved, bigvgan.snake_aa = bigvgan.snake_aa, sa.snake_aa_plain
+
+    def __exit__(self, *exc):
+        from gpt_sovits_tpu_torch.models import bigvgan
+
+        bigvgan.snake_aa = self.saved
+
+
+def snake_in_call(pipe, seed: int, steps: int = 2) -> dict:
+    """K6 inside one BigVGAN call of the v3 pipeline on a 2224-frame mel
+    (bf16), under the profiler. ms: the device time of the call's 109 K6
+    launches. plain_ms: the device time the twins take in their place, that
+    is the call's device time with the twins less its device time without
+    K6's launches. The bound counts the bytes and operations of the snake
+    inputs this call made, recorded by a forward pre-hook."""
+    from gpt_sovits_tpu_torch.models.bigvgan import AntiAliasedSnake
+
+    mel = _v3_mel(pipe, seed)
+    seen = []
+    hooks = [m.register_forward_pre_hook(lambda _m, a: seen.append((a[0].numel(), a[0].element_size(), a[0].shape[1])))
+             for m in pipe._voc.modules() if isinstance(m, AntiAliasedSnake)]
+    try:
+        with torch.no_grad():
+            pipe._voc(mel)
+    finally:
+        for h in hooks:
+            h.remove()
+    assert len(seen) == SNAKE_PER_CALL, len(seen)
+    bound, by = bound_ms(sum(2 * n * e + 8 * c for n, e, c in seen), SNAKE_OPS * sum(n for n, _, _ in seen), "f32")
+
+    def call(_=0):
+        return pipe._voc(mel)
+
+    with torch.no_grad():
+        call()
+        torch.cuda.synchronize()
+        evs, wall = device_events(call, steps), cuda_ms(call, steps)
+        with twins_in_bigvgan():
+            call()
+            torch.cuda.synchronize()
+            evs_t, wall_t = device_events(call, steps), cuda_ms(call, steps)
+    assert evs and evs_t, "the profiler saw no device time in the BigVGAN call"
+    snake = [ev for ev in evs if "snake_aa_kernel" in ev.key]
+    assert not any("snake_aa_kernel" in ev.key for ev in evs_t), "K6 launched in the twins' call"
+    launches = sum(ev.count for ev in snake) / steps
+    assert launches == SNAKE_PER_CALL, launches
+    ms = sum(ev.self_device_time_total for ev in snake) / 1e3 / steps
+    busy = sum(ev.self_device_time_total for ev in evs) / 1e3 / steps
+    busy_t = sum(ev.self_device_time_total for ev in evs_t) / 1e3 / steps
+    return {"ms": ms, "plain_ms": busy_t - (busy - ms), "bound_ms": bound, "bound_by": by, "timer": "profiler",
+            "launches_a_call": launches, "call_device_ms": busy, "call_device_ms_twins": busy_t,
+            "call_wall_ms": wall, "call_wall_ms_twins": wall_t}
 
 
 def cfm_long_phase(pipe, seed: int, steps: int = 4) -> dict:
@@ -1116,6 +1176,8 @@ def main(argv=None) -> int:
     emit({"phase": "path_v3", "launches": launches3, "cfm_calls": calls["cfm"], "vocoder_calls": calls["vocoder"],
           "max_memory_GB": torch.cuda.max_memory_allocated() / 1e9})
     emit({"phase": "v3_profile", **v3_layer_profiles(pipe3, args.seed)})
+    sn = snake_in_call(pipe3, args.seed)
+    emit({"phase": "snake_in_call", **sn})
     long = cfm_long_phase(pipe3, args.seed)  # resets and reads the counts around its one kernel run
     emit({"phase": "cfm_long", **long})
 
@@ -1152,12 +1214,14 @@ def main(argv=None) -> int:
         "bound_by": r["bound_by"], "library_ms": r["library_ms"], "timer": r["timer"],
         "config": r["config"] + "; launches from the cfm_long phase (T 2560, 4 steps)",
     })
-    sn = snake_per_call(v3_rows)
     kernels.append({
         "name": "snake_aa", "route": "cuda", "source": SNAKE_SRC, "replaces": SNAKE_REPLACES,
-        "launches": launches3["snake_aa"], **sn, "library_ms": None,
-        "config": "one BigVGAN call on a 2224-frame mel in bf16: the 109 launches at the six stage shapes, "
-                  "summed from the per-stage v3_kernels lines; no single PyTorch call computes this function",
+        "launches": launches3["snake_aa"],
+        "max_abs_err": max(v3_rows[("snake_aa", torch.bfloat16, c)]["held"]["max_abs_err"] for c, _ in V3_STAGES),
+        **{k: sn[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "timer")}, "library_ms": None,
+        "config": "one BigVGAN call on a 2224-frame mel in bf16 (snake_in_call): ms the device time of its 109 "
+                  "launches, plain_ms that of the twins in their place; max_abs_err over the bf16 stage shapes "
+                  "(v3_kernels); no single PyTorch call computes this function",
     })
     print(json.dumps({"kernels": kernels}))
     print(card)

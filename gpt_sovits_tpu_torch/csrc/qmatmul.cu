@@ -394,6 +394,17 @@ __global__ void __launch_bounds__(GEMM_THREADS) qkv_rope_kernel(
     }
 }
 
+// The one launch of qdense_kernel, counted under `c`: K2's (gsv_qdense) or
+// K4's GEMM (gsv_qdense_out).
+cudaError_t launch_qdense(const int8_t* xq, const float* sx, const int8_t* w, const float* sw, const float* bias,
+                          const void* res, const float* gate, const float* mask, void* out, int M, int N, int K,
+                          int T, int gelu, Counter c, void* stream) {
+    const dim3 grid(N / BN, (M + BM - 1) / BM);
+    qdense_kernel<<<grid, GEMM_THREADS, 0, (cudaStream_t)stream>>>(
+        xq, sx, w, sw, bias, (const __nv_bfloat16*)res, gate, mask, (__nv_bfloat16*)out, M, N, K, T, gelu);
+    return counted(c);
+}
+
 }  // namespace
 
 extern "C" {
@@ -418,21 +429,15 @@ int gsv_row_quant_heads(const void* x, int8_t* xq, float* sx, int M, int K, int 
 // null; mask (M) f32 or null; out (M, N) bf16.
 int gsv_qdense(const int8_t* xq, const float* sx, const int8_t* w, const float* sw, const float* bias, const void* res,
                const float* gate, const float* mask, void* out, int M, int N, int K, int T, int gelu, void* stream) {
-    const dim3 grid(N / BN, (M + BM - 1) / BM);
-    qdense_kernel<<<grid, GEMM_THREADS, 0, (cudaStream_t)stream>>>(
-        xq, sx, w, sw, bias, (const __nv_bfloat16*)res, gate, mask, (__nv_bfloat16*)out, M, N, K, T, gelu);
-    return (int)counted(C_QDENSE);
+    return (int)launch_qdense(xq, sx, w, sw, bias, res, gate, mask, out, M, N, K, T, gelu, C_QDENSE, stream);
 }
 
-// K4's GEMM: gsv_qdense's kernel (no gelu) on row_quant_heads' codes, counted
-// as K4's launch.
+// K4's GEMM: gsv_qdense without gelu, on row_quant_heads' codes, counted as
+// K4's launch.
 int gsv_qdense_out(const int8_t* xq, const float* sx, const int8_t* w, const float* sw, const float* bias,
                    const void* res, const float* gate, const float* mask, void* out, int M, int N, int K, int T,
                    void* stream) {
-    const dim3 grid(N / BN, (M + BM - 1) / BM);
-    qdense_kernel<<<grid, GEMM_THREADS, 0, (cudaStream_t)stream>>>(
-        xq, sx, w, sw, bias, (const __nv_bfloat16*)res, gate, mask, (__nv_bfloat16*)out, M, N, K, T, 0);
-    return (int)counted(C_QOUT);
+    return (int)launch_qdense(xq, sx, w, sw, bias, res, gate, mask, out, M, N, K, T, 0, C_QOUT, stream);
 }
 
 // three (N, K) int8 weights; cos/sin (T, dh / 2) f32; q, k, v (M / T, N / dh, T, dh) bf16.

@@ -30,12 +30,14 @@
 // T not a multiple of TT and any channel count work, since rows and tiles
 // are independent and the last tile masks its tail.
 //
-// What bounds it: it moves 2 x numel x element size bytes and does ~82 f32
-// operations an output (24 FMAs for the two u samples, two sines, 12 FMAs
-// for y): in bf16 the operations bound (67 TFLOP/s f32) and the bytes
-// bound (3.35 TB/s) are about equal, in f32 the bytes bound is twice the
-// other. It runs as fast in bf16 as in f32, so its own arithmetic and
-// shared-memory traffic hold it (PERF.md). sinf, not __sinf or --use_fast_math: the accurate
+// What bounds it: it moves 2 x numel x element size bytes and needs 58 f32
+// operations an output, an FMA counted as two: 6 FMAs for each of the two
+// upsampled samples, two snakes (a u, sin, square, one FMA: 5 each) and 12
+// FMAs for y. The bytes bound (3.35 TB/s) is the larger: 1.4x the
+// operations bound (67 TFLOP/s f32) in bf16, 2.8x in f32. It runs about as
+// fast in bf16 as in f32 (PERF.md), so neither bound holds it yet: its own
+// instructions (an accurate sinf is many) and shared-memory traffic do.
+// sinf, not __sinf or --use_fast_math: the accurate
 // sine keeps the twin's rounding (a __sinf copy stayed inside the 2e-5 bar
 // at BigVGAN's amplitudes, PERF.md, so the check cannot stand guard for it).
 // The loads are 2 or 4 bytes a thread; wider loads and register tiling are
