@@ -1,15 +1,17 @@
 """Copies of the port with one fault planted in a CUDA kernel (K6
-`csrc/snake_aa.cu`, K4's path in `csrc/qmatmul.cu`), each of which must
-fail chip_smoke.py's check of that kernel on the card.
+`csrc/snake_aa.cu`, K4's path and the s8 GEMM of K2/K4 in
+`csrc/qmatmul.cu` and its plan in `ops/qmatmul.py`, K5 `csrc/qflash.cu`),
+each of which must fail chip_smoke.py's check of that kernel on the card.
 
     python3 broken_copies.py        # one CUDA card; exits non-zero if a copy passes its check
 
 Each copy is gpt_sovits_tpu_torch/ and chip_smoke.py under a temporary
 directory outside the checkout, with one line of one source replaced; its
-check (chip_smoke.snake_case or chip_smoke.k4_case at a main-path shape)
-runs in a child process there, which builds the copy's kernels. The same
-checks run first on the unbroken sources and must pass. One JSON line per
-copy: the check's outcome and the end of its assertion message.
+checks (chip_smoke.snake_case, k4_case, k5_case or gemm_case at a main-path
+shape) run in a child process there, which builds the copy's kernels. The
+same checks run first on the unbroken sources and must pass. One JSON line
+per copy and check: the check's outcome and the end of its assertion
+message.
 """
 
 from __future__ import annotations
@@ -24,11 +26,20 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SNAKE = "gpt_sovits_tpu_torch/csrc/snake_aa.cu"
 QMM = "gpt_sovits_tpu_torch/csrc/qmatmul.cu"
+QMM_PY = "gpt_sovits_tpu_torch/ops/qmatmul.py"
+QFLASH = "gpt_sovits_tpu_torch/csrc/qflash.cu"
 CHECKS = {
     # a stage shape whose T (8896) is not a multiple of the 1024-sample tile
     "snake_f32": "c.snake_case(768, 8896, torch.float32, g)",
     "snake_bf16": "c.snake_case(768, 8896, torch.bfloat16, g)",
     "k4": "c.k4_case(1, g)",
+    # K5 at the DiT chunk (T 1024, 1000 real keys), B = 1 and 4, and at a T
+    # whose last 128-key tile is partial
+    "k5_b1": "c.k5_case(1, 1024, 1000, g)",
+    "k5_b4": "c.k5_case(4, 1024, 1000, g)",
+    "k5_t1000": "c.k5_case(1, 1000, 960, g)",
+    # K2's block at M = 1000: the GEMM's last 128-row block is ragged
+    "gemm_ragged": "c.gemm_case(1, 1000, g)",
 }
 # (name, source, the line as it is, the broken line, checks that must fail)
 COPIES = [
@@ -43,8 +54,18 @@ COPIES = [
      "                src = x + ((b * H + (H - 1 - k0 / dh)) * T + t) * dh + k0 % dh;", ("k4",)),
     ("K4: heads-in layout read as merged", QMM, "            if (HEADS) {  // head k0 / dh of row (b, t): x[b, k0 / dh, t, k0 % dh]",
      "            if (false) {", ("k4",)),
-    ("K4: pad-row mask ignored", QMM, "            const bool keep = mask == nullptr || mask[row] > 0.f;",
-     "            const bool keep = true;", ("k4",)),
+    ("K4: pad-row mask ignored (the GEMM's epilogue)", QMM,
+     "        const bool keep = mask == nullptr || mask[row] > 0.f;", "        const bool keep = true;", ("k4",)),
+    ("GEMM: the last K slot dropped", QMM, "    const int nk = (K + C::BK - 1) / C::BK;",
+     "    const int nk = (K + C::BK - 1) / C::BK - 1;", ("k4", "gemm_ragged")),
+    ("GEMM: a ragged M's last row block dropped", QMM_PY, "    grid_m = -(-m // GEMM_TILE_M)",
+     "    grid_m = m // GEMM_TILE_M", ("gemm_ragged",)),
+    ("K5: mask ignored", QFLASH, "    return (maskb == nullptr || maskb[key] > 0.f) ? 0.f : -1e9f;",
+     "    return 0.f;", ("k5_b1", "k5_b4")),
+    ("K5: the last, partial key tile dropped", QFLASH, "    const int n_tiles = (T + KB - 1) / KB;",
+     "    const int n_tiles = T / KB;", ("k5_t1000",)),
+    ("K5: ring slot k+1's tile consumed as slot k's", QFLASH, "        const uint8_t* k_tile = sk + st * K_BYTES;",
+     "        const uint8_t* k_tile = sk + ((st + 1) % FA_STAGES) * K_BYTES;", ("k5_b1",)),
 ]
 
 

@@ -4,6 +4,7 @@ the full-width v2ProPlus, v4 and v3 zero-shot pipelines through them, and
 prints one JSON line per phase.
 
     python3 chip_smoke.py            # one CUDA card; exits non-zero on any failure
+    python3 chip_smoke.py --parent smoke_tree/parent   # also time K2/K4/K5 on an earlier tree's kernels
 
 Phases: device, build, kernels (K1's kernels at L=24, D=512, H=16, F=2048,
 T_pad=1024, a live prefix of 745, B in {1, 8}, bf16 and int8/int8;
@@ -16,8 +17,10 @@ twin), stream_v2 (one run_streaming request: a fragment per segment, each of
 its tokens' length plus the silence, and the time to the first); then for
 v4: kernels (K2, K3, K5 at dim 1024, 16 x 64 heads, ff 2048,
 T=1024 with 1000 real frames, B in {1, 4}, on inputs where a mask or rotary
-fault shows), path_v4 (set_ref_audio with a transcript + two `run` requests
-through S1, the int8 DiT CFM and the 48 kHz vocoder, one of them a
+fault shows; K5 also at T = 1000 and 2048; device time split into the
+GEMM or flash_attn body and the row_quant / v_quant helper), path_v4
+(set_ref_audio with a transcript + two `run` requests through S1, the
+int8 DiT CFM and the 48 kHz vocoder, one of them a
 multi-chunk CFM batch; launch counts from the CUDA code equal the per-call
 counts times the CFM calls), cfm_teacher (one full-width CFM chunk through
 the kernels and through the twins, and its profile); then for v3:
@@ -32,8 +35,10 @@ v4 counts a CFM call), v3_profile (one BigVGAN and one AP-BWE call under
 the profiler), snake_in_call (K6's 109 launches inside one BigVGAN call
 under the profiler, and the device time its twins take in their place),
 cfm_long (one CFM call at T=2560 through K3 -> SDPA
--> K4 -> K2 and through the twins); then the `kernels` summary line, the
-card's name and power limit, and last
+-> K4 -> K2 and through the twins); gemm_tiles (the s8 GEMM alone at each
+tile width, beside gemm_plan's choice); with --parent, compare_trees (K2,
+K4, K5 timed on the earlier tree's kernels and on this tree's, in turns);
+then the `kernels` summary line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Bounds use the H100 SXM's
 published peaks (3.35 TB/s; 989 TFLOP/s bf16, 1979 TOP/s int8, 67 TFLOP/s
 f32), with the card's power limit printed beside them.
@@ -46,6 +51,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -114,21 +120,31 @@ def device_events(fn, iters: int, attempts: int = 3):
     return None
 
 
-def device_ms(fn, iters: int) -> tuple[float, str]:
+HELPERS = ("row_quant", "v_quant")  # kernel names of the int8 kernels' helper launches (row_quant_heads too)
+
+
+def device_ms(fn, iters: int) -> tuple[float, str, dict]:
     """Mean device time of fn(i): the kernels' own busy time, without the
-    launch gaps between them, and "profiler". Where the profiler saw no
-    device time, the CUDA-event time of the same calls, and "events"."""
+    launch gaps between them, and "profiler"; and that time split by kernel
+    name into body_ms (the GEMM or flash_attn) and helper_ms (row_quant,
+    row_quant_heads or v_quant). Where the profiler saw no device time, the
+    CUDA-event time of the same calls, "events", and no split."""
     fn(0)
     torch.cuda.synchronize()
     evs = device_events(fn, iters)
     if evs is None:
-        return cuda_ms(fn, iters), "events"
-    return sum(ev.self_device_time_total for ev in evs) / 1e3 / iters, "profiler"
+        return cuda_ms(fn, iters), "events", {"body_ms": None, "helper_ms": None}
+    total = sum(ev.self_device_time_total for ev in evs) / 1e3 / iters
+    helper = sum(ev.self_device_time_total for ev in evs if any(h in ev.key for h in HELPERS)) / 1e3 / iters
+    return total, "profiler", {"body_ms": total - helper, "helper_ms": helper}
 
 
-def timings(prefix: str, fn, iters: int) -> dict:
-    ms, timer = device_ms(fn, iters)
-    return {f"{prefix}ms": ms, f"{prefix}timer": timer, f"{prefix}wall_ms": cuda_ms(fn, iters)}
+def timings(prefix: str, fn, iters: int, split: bool = False) -> dict:
+    """{prefix}ms (device), {prefix}timer, {prefix}wall_ms; with split, also
+    body_ms and helper_ms from the same profiler window."""
+    ms, timer, parts = device_ms(fn, iters)
+    return {f"{prefix}ms": ms, f"{prefix}timer": timer, f"{prefix}wall_ms": cuda_ms(fn, iters),
+            **(parts if split else {})}
 
 
 def bound_ms(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
@@ -518,60 +534,145 @@ def _mm_bytes(m: int, k: int, n: int) -> int:
     return m * k * 2 + n * k + n * 8 + m * n * 2
 
 
-def v4_kernel_phase(b: int, seed: int) -> dict:
-    """K2 (three DiT variants), K3 and K5 at v4 shapes (dim 1024, 16 x 64
-    heads, ff 2048, T 1024 with 1000 real frames), B rows; each held against
-    its twin on the card, on inputs where a fault shows: K2's masked variant
-    has pad rows 50x larger (a copy that drops the mask moves them far past
-    the bar), K3 runs positions 0..1023 (rotating every head, or none, moves
-    the output by about its size), K5 has keys aligned with the query planted
-    in the pad region with large V (ignoring the mask moves every row)."""
-    from gpt_sovits_tpu_torch.ops import qflash as qf
-    from gpt_sovits_tpu_torch.ops import qmatmul as qm
-
+def k2_block(b: int, t: int, real: int, g: torch.Generator):
+    """K2's three calls of one DiT block at v4 widths, B rows of T frames
+    (`real` of them real): name -> (call(fn), (M, K, N), epilogue bytes),
+    and res. to_out has the mask and the gated residual, and x's pad rows
+    are 50x larger (a copy that drops the mask moves them far past the bar);
+    ff1 the AdaLN prologue and gelu; ff2 the gated residual."""
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(seed + 10)
-    m, t, d, f = b * V4_T, V4_T, V4_DIM, V4_FF
+    m, d, f = b * t, V4_DIM, V4_FF
     bf = torch.bfloat16
     mask = torch.zeros((b, t), device=dev)
-    mask[:, :V4_REAL] = 1.0
+    mask[:, :real] = 1.0
     x = torch.randn((b, t, d), generator=g, device=dev)
-    x[:, V4_REAL:] *= 50.0
+    x[:, real:] *= 50.0
     x = x.to(bf).contiguous()
     h1 = torch.randn((b, t, f), generator=g, device=dev).to(bf)
     res = torch.randn((b, t, d), generator=g, device=dev).to(bf)
     gate = (0.5 * torch.randn((b, d), generator=g, device=dev)).contiguous()
     sc, sh = ((0.3 * torch.randn((b, d), generator=g, device=dev)).contiguous() for _ in range(2))
     w_out, w_ff1, w_ff2 = _qweight(d, d, g), _qweight(f, d, g), _qweight(d, f, g)
-    wqkv = [_qweight(d, d, g) for _ in range(3)]
-    rows = {}
-
-    # K2: the attention output (mask + gated residual), ff1 (AdaLN + gelu), ff2 (gated residual)
-    variants = {
+    return {
         "to_out": (lambda fn: fn(x, *w_out, res_gate=(res, gate), mask=mask), (m, d, d), 2 * m * d),
         "ff1": (lambda fn: fn(x, *w_ff1, ln_mod=(sc, sh), act="gelu"), (m, d, f), 2 * b * d * 4),
         "ff2": (lambda fn: fn(h1, *w_ff2, res_gate=(res, gate)), (m, f, d), 2 * m * d + b * d * 4),
-    }
-    held, nbytes, ops, lib_in = {}, 0, 0, []
-    for name, (call, (mm, kk, nn), extra) in variants.items():
+    }, res
+
+
+def hold_k2(calls: dict, res, real: int) -> dict:
+    """Each K2 call held against its twin; to_out's pad rows carry the
+    residual alone."""
+    from gpt_sovits_tpu_torch.ops import qmatmul as qm
+
+    held = {}
+    for name, (call, _, _) in calls.items():
         got, ref = call(qm.qdense_int8), call(qm.qdense_int8_plain)
         held[name] = _held(f"qdense_int8 {name}", got, ref)
-        if name == "to_out":  # the pad rows carry the residual alone
-            assert float((got[:, V4_REAL:].float() - res[:, V4_REAL:].float()).abs().max()) <= 1e-2, "mask ignored"
-        nbytes += _mm_bytes(mm, kk, nn) + extra
-        ops += 2 * mm * kk * nn
-        lib_in.append((torch.randint(-127, 128, (mm, kk), generator=g, device=dev, dtype=torch.int8),
-                       [w_out, w_ff1, w_ff2][len(lib_in)][0]))
+        if name == "to_out":
+            assert float((got[:, real:].float() - res[:, real:].float()).abs().max()) <= 1e-2, "mask ignored"
+    return held
+
+
+def gemm_case(b: int, t: int, g: torch.Generator) -> dict:
+    """K2's block at B rows of T frames where B x T is no multiple of the
+    GEMM's 128-row tiles (its last row block is ragged), the last 40 frames
+    pads: held against the twins (a plan or kernel that drops the ragged
+    block leaves those rows unwritten)."""
+    calls, res = k2_block(b, t, t - 40, g)
+    return hold_k2(calls, res, t - 40)
+
+
+def bf16_step(x: float) -> float:
+    """The spacing of bf16 values at |x|."""
+    return 2.0 ** (np.floor(np.log2(abs(x))) - 7) if x else 0.0
+
+
+def k5_inputs(b: int, t: int, real: int, g: torch.Generator):
+    """K5's inputs at v4 widths (16 x 64 heads), B rows of T frames, `real`
+    of them real: the mask and two cases of (q, k, v) bf16. random; peaked:
+    every query of a head along one direction u, keys 12u with V = 6 planted
+    in the pad region (ignoring the mask moves every row), and three live
+    keys 10u (at 100, 400, 900, or spread over the real keys of a shorter
+    T) that carry the rows' weight."""
+    dev = torch.device("cuda")
+    mask = torch.zeros((b, t), device=dev)
+    mask[:, :real] = 1.0
+    q, k, v = (torch.randn((b, V4_HEADS, t, V4_DH), generator=g, device=dev) for _ in range(3))
+    qp = q.clone()
+    u = q[:, :, :1] / q[:, :, :1].norm(dim=-1, keepdim=True)
+    qp[:] = 6.0 * u
+    kp, vp = k.clone(), v.clone()
+    kp[:, :, real:] = 12.0 * u
+    vp[:, :, real:] = 6.0
+    for tt in (100, 400, 900) if real > 900 else (real // 10, real // 2, real - 20):
+        kp[:, :, tt] = 10.0 * u[:, :, 0]
+    bf = torch.bfloat16
+    cases = {"random": (q, k, v), "peaked": (qp, kp, vp)}
+    return mask, {c: tuple(z.to(bf).contiguous() for z in zs) for c, zs in cases.items()}
+
+
+def k5_case(b: int, t: int, real: int, g: torch.Generator) -> dict:
+    """K5 at (B, 16, T, 64), `real` real keys, on k5_inputs' random and
+    peaked cases: within 2% of the output's max over the real rows, and the
+    peaked case within one bf16 step of its max (its codes are the twin's
+    but where f32 sums round apart). On the twin, what ignoring the mask
+    would cost in the peaked case."""
+    from gpt_sovits_tpu_torch.ops import qflash as qf
+
+    sm = 1.0 / np.sqrt(V4_DH)
+    mask, cases = k5_inputs(b, t, real, g)
+    held = {}
+    for case, (q, k, v) in cases.items():
+        got = qf.flash_attn_int8(q, k, v, mask, sm_scale=sm)
+        ref = qf.flash_attn_int8_plain(q, k, v, mask, sm_scale=sm)
+        held[case] = _held(f"flash_attn_int8 {case} B={b} T={t}", got[:, :real], ref[:, :real])
+        if case == "peaked":
+            step = bf16_step(held[case]["out_max"])
+            assert held[case]["max_abs_err"] <= step, f"flash_attn_int8 peaked B={b} T={t}: {held[case]}, step {step}"
+            nomask = qf.flash_attn_int8_plain(q, k, v, None, sm_scale=sm)
+            held["mask_shift"] = float((nomask[:, :real].float() - ref[:, :real].float()).abs().max())
+            assert held["mask_shift"] > 10 * V4_BAR * held[case]["out_max"], held
+    return held
+
+
+def v4_kernel_phase(b: int, seed: int) -> dict:
+    """K2 (three DiT variants), K3 and K5 at v4 shapes (dim 1024, 16 x 64
+    heads, ff 2048, T 1024 with 1000 real frames), B rows; each held against
+    its twin on the card, on inputs where a fault shows (k2_block,
+    k5_inputs; K3 runs positions 0..1023, where rotating every head, or
+    none, moves the output by about its size). K5 is also held at T = 1000
+    (a partial last key tile) and T = 2048 (MAX_INT8_T)."""
+    from gpt_sovits_tpu_torch.ops import qflash as qf
+    from gpt_sovits_tpu_torch.ops import qmatmul as qm
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 10)
+    m, t, d = b * V4_T, V4_T, V4_DIM
+    bf = torch.bfloat16
+    rows = {}
+
+    # K2: the attention output (mask + gated residual), ff1 (AdaLN + gelu), ff2 (gated residual)
+    variants, res = k2_block(b, t, V4_REAL, g)
+    held = hold_k2(variants, res, V4_REAL)
+    nbytes = sum(_mm_bytes(mm, kk, nn) + extra for _, (mm, kk, nn), extra in variants.values())
+    ops = sum(2 * mm * kk * nn for _, (mm, kk, nn), _ in variants.values())
+    lib_in = [(torch.randint(-127, 128, (mm, kk), generator=g, device=dev, dtype=torch.int8),
+               torch.randint(-127, 128, (nn, kk), generator=g, device=dev, dtype=torch.int8))
+              for _, (mm, kk, nn), _ in variants.values()]
     block = lambda fn: [c(fn) for c, _, _ in variants.values()]  # noqa: E731
     bound, by = bound_ms(nbytes, ops, "int8")
     rows["qdense_int8"] = dict(
         max_abs_err=max(h["max_abs_err"] for h in held.values()), held=held,
-        **timings("", lambda i: block(qm.qdense_int8), 20), **timings("plain_", lambda i: block(qm.qdense_int8_plain), 3),
+        **timings("", lambda i: block(qm.qdense_int8), 20, split=True),
+        **timings("plain_", lambda i: block(qm.qdense_int8_plain), 3),
         **timings("library_", lambda i: [torch._int_mm(a, w.t()) for a, w in lib_in], 20),
         bound_ms=bound, bound_by=by, config=f"B={b}: to_out + ff1 + ff2 of one DiT block (3 launches)")
 
     # K3: q, k, v with the AdaLN prologue and rotary on head 0
     xq3 = torch.randn((b, t, d), generator=g, device=dev).to(bf)
+    sc, sh = ((0.3 * torch.randn((b, d), generator=g, device=dev)).contiguous() for _ in range(2))
+    wqkv = [_qweight(d, d, g) for _ in range(3)]
 
     def qkv(fn):
         return fn(xq3, *(w[0] for w in wqkv), *(w[1] for w in wqkv), *(w[2] for w in wqkv), ln_mod=(sc, sh),
@@ -589,45 +690,61 @@ def v4_kernel_phase(b: int, seed: int) -> dict:
     bound, by = bound_ms(m * d * 2 + 3 * (d * d + 8 * d) + 3 * m * d * 2 + 2 * b * d * 4, 3 * 2 * m * d * d, "int8")
     rows["qkv_rope_int8"] = dict(
         max_abs_err=max(h["max_abs_err"] for h in held.values() if isinstance(h, dict)), held=held,
-        **timings("", lambda i: qkv(qm.qkv_rope_int8), 20), **timings("plain_", lambda i: qkv(qm.qkv_rope_int8_plain), 3),
+        **timings("", lambda i: qkv(qm.qkv_rope_int8), 20, split=True),
+        **timings("plain_", lambda i: qkv(qm.qkv_rope_int8_plain), 3),
         **timings("library_", lambda i: [torch._int_mm(xq_lib, w[0].t()) for w in wqkv], 20),
         bound_ms=bound, bound_by=by, config=f"B={b}, T={t}")
 
-    # K5: random and peaked, keys planted in the pad region
+    # K5: random and peaked at the chunk's T, then at T = 1000 and 2048
+    held = k5_case(b, t, V4_REAL, g)
+    held["T=1000"] = k5_case(b, 1000, 960, g)
+    held["T=2048"] = k5_case(b, 2048, 2000, g)
+    mask, cases = k5_inputs(b, t, V4_REAL, g)
+    qb, kb, vb = cases["random"]
     sm = 1.0 / np.sqrt(V4_DH)
-    q, k, v = (torch.randn((b, V4_HEADS, t, V4_DH), generator=g, device=dev) for _ in range(3))
-    qp = q.clone()
-    u = q[:, :, :1] / q[:, :, :1].norm(dim=-1, keepdim=True)
-    qp[:] = 6.0 * u
-    kp, vp = k.clone(), v.clone()
-    kp[:, :, V4_REAL:] = 12.0 * u
-    vp[:, :, V4_REAL:] = 6.0
-    for tt in (100, 400, 900):  # three live keys that carry the peaked rows' weight
-        kp[:, :, tt] = 10.0 * u[:, :, 0]
-    held = {}
-    cases = {"random": (q, k, v), "peaked": (qp, kp, vp)}
-    for case, (a, bk, c) in cases.items():
-        a, bk, c = (z.to(bf).contiguous() for z in (a, bk, c))
-        got = qf.flash_attn_int8(a, bk, c, mask, sm_scale=sm)
-        ref = qf.flash_attn_int8_plain(a, bk, c, mask, sm_scale=sm)
-        held[case] = _held(f"flash_attn_int8 {case}", got[:, :V4_REAL], ref[:, :V4_REAL])
-        if case == "peaked":  # what ignoring the mask would cost
-            nomask = qf.flash_attn_int8_plain(a, bk, c, None, sm_scale=sm)
-            held["mask_shift"] = float((nomask[:, :V4_REAL].float() - ref[:, :V4_REAL].float()).abs().max())
-            assert held["mask_shift"] > 10 * V4_BAR * held[case]["out_max"], held
-    qb, kb, vb = (z.to(bf).contiguous() for z in (q, k, v))
     attn_mask = (mask > 0)[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qk_ops = 2 * b * V4_HEADS * t * t * V4_DH
     bound = max(qk_ops / PEAK_OPS["bf16"] * 1e3 + qk_ops / PEAK_OPS["int8"] * 1e3,
                 (4 * b * V4_HEADS * t * V4_DH * 2 + b * t * 4) / HBM_BYTES_S * 1e3)
+    errs = [h["max_abs_err"] for hh in (held, held["T=1000"], held["T=2048"]) for h in hh.values()
+            if isinstance(h, dict) and "max_abs_err" in h]
     rows["flash_attn_int8"] = dict(
-        max_abs_err=max(h["max_abs_err"] for h in held.values() if isinstance(h, dict)), held=held,
-        **timings("", lambda i: qf.flash_attn_int8(qb, kb, vb, mask, sm_scale=sm), 20),
+        max_abs_err=max(errs), held=held,
+        **timings("", lambda i: qf.flash_attn_int8(qb, kb, vb, mask, sm_scale=sm), 20, split=True),
         **timings("plain_", lambda i: qf.flash_attn_int8_plain(qb, kb, vb, mask, sm_scale=sm), 3),
         **timings("library_", lambda i: sdpa(qb, kb, vb, attn_mask=attn_mask), 20),
         bound_ms=bound, bound_by="operations", config=f"B={b}, H=16, T={t}, {V4_REAL} real keys")
     return rows
+
+
+def gemm_tile_phase(seed: int) -> dict:
+    """The qdense GEMM alone (no row_quant, no epilogue inputs) at each tile
+    width it is built for, on the main path's (M, K, N) at B = 1 and 4 and
+    K4's: device ms by width (each timed twice, in turns) beside
+    gemm_plan's choice, and the widths' outputs equal (s32 sums are
+    exact, the epilogue is the same)."""
+    from gpt_sovits_tpu_torch.ops import qmatmul as qm
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 70)
+    out = {}
+    for b in (1, 4):
+        shapes = {"to_out": (b * V4_T, V4_DIM, V4_DIM), "ff1": (b * V4_T, V4_DIM, V4_FF),
+                  "ff2": (b * V4_T, V4_FF, V4_DIM), "k4": (b * K4_T, V4_DIM, V4_DIM)}
+        for name, (m, k, n) in shapes.items():
+            xq = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+            sx = torch.rand(m, generator=g, device=dev) + 0.5
+            w, sw, bias = _qweight(n, k, g)
+            row = {"M": m, "K": k, "N": n, "plan": qm.gemm_plan(m, n)[0]}
+            ys = []
+            for tn in (*qm.GEMM_TILES_N, *qm.GEMM_TILES_N):
+                run = lambda i, tn=tn: qm._gemm(xq, sx, w, sw, bias, None, None, None, m, tile_n=tn)  # noqa: E731
+                ys.append(run(0))
+                row.setdefault(f"ms_{tn}", []).append(device_ms(run, 50)[0])
+            assert all(torch.equal(ys[0], y) for y in ys), f"qdense tile widths disagree at {name} B={b}"
+            out[f"{name} B={b}"] = row
+    return out
 
 
 V4_MAX_SEC = 8  # S1 cap per segment on the v4 path: 200 tokens, 800 mel frames; keeps the CFM bucket <= 6
@@ -817,14 +934,10 @@ def snake_case(c: int, t: int, dtype, g: torch.Generator) -> dict:
                 library_ms=None, bound_ms=bound, bound_by=by, config=f"(1, {c}, {t}) {str(dtype)[6:]}")
 
 
-def k4_case(b: int, g: torch.Generator) -> dict:
-    """K4 at (B, 16, 2560, 64) -> 1024 with 2500 real frames: heads of very
-    different scales (a head-order or layout fault moves every row), pad rows
-    50x larger with the mask on (the pad rows must carry the residual
-    alone); what merging the heads in reverse order would cost is measured
-    on the twin. Library: torch._int_mm on the same int8 shapes."""
-    from gpt_sovits_tpu_torch.ops import qmatmul as qm
-
+def k4_call(b: int, g: torch.Generator):
+    """K4's inputs at (B, 16, 2560, 64) -> 1024 with 2500 real frames: heads
+    of very different scales, pad rows 50x larger, mask, gated residual.
+    Returns call(fn, a=attn) and attn, res, the weights."""
     dev = torch.device("cuda")
     t, d = K4_T, V4_DIM
     scale = torch.logspace(-1, 1, V4_HEADS, device=dev)[None, :, None, None]
@@ -836,7 +949,20 @@ def k4_case(b: int, g: torch.Generator) -> dict:
     res = torch.randn((b, t, d), generator=g, device=dev).to(torch.bfloat16)
     gate = (0.5 * torch.randn((b, d), generator=g, device=dev)).contiguous()
     w = _qweight(d, d, g)
-    call = lambda fn, a=attn: fn(a, *w, res_gate_mask=(res, gate, mask))  # noqa: E731
+    return (lambda fn, a=attn: fn(a, *w, res_gate_mask=(res, gate, mask))), attn, res, w
+
+
+def k4_case(b: int, g: torch.Generator) -> dict:
+    """K4 at (B, 16, 2560, 64) -> 1024 with 2500 real frames: heads of very
+    different scales (a head-order or layout fault moves every row), pad rows
+    50x larger with the mask on (the pad rows must carry the residual
+    alone); what merging the heads in reverse order would cost is measured
+    on the twin. Library: torch._int_mm on the same int8 shapes."""
+    from gpt_sovits_tpu_torch.ops import qmatmul as qm
+
+    dev = torch.device("cuda")
+    t, d = K4_T, V4_DIM
+    call, attn, res, w = k4_call(b, g)
     got, ref = call(qm.qdense_out_int8), call(qm.qdense_out_int8_plain)
     held = {"masked": _held("qdense_out_int8", got, ref)}
     assert float((got[:, K4_REAL:].float() - res[:, K4_REAL:].float()).abs().max()) <= 1e-2, "mask ignored"
@@ -849,11 +975,12 @@ def k4_case(b: int, g: torch.Generator) -> dict:
     nbytes = m * d * 2 + d * d + 8 * d + 2 * m * d * 2 + b * d * 4 + m * 4
     bound, by = bound_ms(nbytes, 2 * m * d * d, "int8")
     return dict(max_abs_err=held["masked"]["max_abs_err"], held=held,
-                **timings("", lambda i: call(qm.qdense_out_int8), 20),
+                **timings("", lambda i: call(qm.qdense_out_int8), 20, split=True),
                 **timings("plain_", lambda i: call(qm.qdense_out_int8_plain), 3),
                 **timings("library_", lambda i: torch._int_mm(xq_lib, w[0].t()), 20),
                 bound_ms=bound, bound_by=by,
-                config=f"B={b}, (B, 16, {t}, 64) -> 1024, {K4_REAL} real frames; ms includes row_quant_heads")
+                config=f"B={b}, (B, 16, {t}, 64) -> 1024, {K4_REAL} real frames; ms includes row_quant_heads "
+                       "(helper_ms), body_ms is the GEMM")
 
 
 def v3_kernel_phase(seed: int) -> dict:
@@ -1102,9 +1229,66 @@ def stream_v2_phase(pipe, seed: int) -> dict:
             "audio_s": sum(len(f[1]) for f in frags) / sr}
 
 
+def kernel_times(seed: int) -> dict:
+    """Device ms of K2 (one DiT block's three calls), K4 and K5 at the main
+    path's shapes, B = 1 and 4, with body_ms and helper_ms. Only the
+    wrappers' public functions are called, so the same code times another
+    tree's kernels (compare_trees)."""
+    from gpt_sovits_tpu_torch.ops import qflash as qf
+    from gpt_sovits_tpu_torch.ops import qmatmul as qm
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 60)
+    sm = 1.0 / np.sqrt(V4_DH)
+    out = {}
+    for b in (1, 4):
+        calls, _ = k2_block(b, V4_T, V4_REAL, g)
+        out[f"qdense_int8 B={b}"] = timings("", lambda i: [c(qm.qdense_int8) for c, _, _ in calls.values()], 20,
+                                            split=True)
+        call = k4_call(b, g)[0]
+        out[f"qdense_out_int8 B={b}"] = timings("", lambda i: call(qm.qdense_out_int8), 20, split=True)
+        mask, cases = k5_inputs(b, V4_T, V4_REAL, g)
+        q, k, v = cases["random"]
+        out[f"flash_attn_int8 B={b}"] = timings("", lambda i: qf.flash_attn_int8(q, k, v, mask, sm_scale=sm), 20,
+                                                split=True)
+        del calls, call, mask, cases, q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
+def compare_trees(parent: str, seed: int) -> dict:
+    """kernel_times run on the kernels of the tree at `parent` (an unpacked
+    `git archive` of an earlier commit: its gpt_sovits_tpu_torch/) and on
+    this tree's, each in a process of its own that builds its tree's
+    kernels, in turns: parent, this, this, parent. Returns each run and the
+    mean of each tree's two."""
+    here = Path(__file__).resolve()
+    code = (f"import importlib.util, json\n"
+            f"spec = importlib.util.spec_from_file_location('smoke_times', {str(here)!r})\n"
+            "c = importlib.util.module_from_spec(spec)\nspec.loader.exec_module(c)\n"
+            "c.resolve_device('cuda')\n"
+            f"print(json.dumps(c.kernel_times({seed})))\n")
+    trees = {"parent": Path(parent).resolve(), "this": here.parent}
+    runs = []
+    for name in ("parent", "this", "this", "parent"):
+        res = subprocess.run([sys.executable, "-c", code], cwd=trees[name], capture_output=True, text=True,
+                             timeout=900)
+        assert res.returncode == 0, f"kernel_times in {trees[name]}: {res.stderr[-3000:]}"
+        runs.append({"tree": name, "times": json.loads(res.stdout.strip().splitlines()[-1])})
+    mean = {}
+    for name in trees:
+        mine = [r["times"] for r in runs if r["tree"] == name]
+        mean[name] = {key: {f: (None if any(t[key].get(f) is None for t in mine)
+                                else sum(t[key][f] for t in mine) / len(mine))
+                            for f in ("ms", "body_ms", "helper_ms")} for key in mine[0]}
+    return {"parent_dir": str(trees["parent"]), "runs": runs, "mean": mean}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent", default=None,
+                    help="also time K2, K4 and K5 on the kernels of an earlier tree unpacked here, in turns with this "
+                         "tree's (compare_trees)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1180,6 +1364,11 @@ def main(argv=None) -> int:
     emit({"phase": "snake_in_call", **sn})
     long = cfm_long_phase(pipe3, args.seed)  # resets and reads the counts around its one kernel run
     emit({"phase": "cfm_long", **long})
+    del pipe3
+    torch.cuda.empty_cache()
+    emit({"phase": "gemm_tiles", **gemm_tile_phase(args.seed)})
+    if args.parent is not None:
+        emit({"phase": "compare_trees", **compare_trees(args.parent, args.seed)})
 
     main_rows = table[("int8", 1)]
     kernels = []
@@ -1201,17 +1390,20 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": V4_SRC[name], "replaces": V4_REPLACES[name],
             "launches": launches4[name], "helper_launches": {helpers[name]: launches4[helpers[name]]},
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "timer": r["timer"],
-            "config": r["config"] + "; v4 DiT widths, ms includes the wrapper's " + helpers[name] + " launch",
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "body_ms": r["body_ms"], "helper_ms": r["helper_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "timer": r["timer"],
+            "config": r["config"] + "; v4 DiT widths, ms includes the wrapper's " + helpers[name] + " launch "
+                      "(helper_ms); library_ms compares with body_ms",
         })
     r = v3_rows[("qdense_out_int8", 1)]
     kernels.append({
         "name": "qdense_out_int8", "route": "cuda", "source": V4_SRC["qdense_int8"], "replaces": K4_REPLACES,
         "launches": long["launches"]["qdense_out_int8"],
         "helper_launches": {"row_quant_heads": long["launches"]["row_quant_heads"]},
-        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": r["library_ms"], "timer": r["timer"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "body_ms": r["body_ms"], "helper_ms": r["helper_ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"], "timer": r["timer"],
         "config": r["config"] + "; launches from the cfm_long phase (T 2560, 4 steps)",
     })
     kernels.append({

@@ -34,11 +34,18 @@
 // batches. So the floor is the int8 tensor-core rate for B >= 4 and the
 // bytes below.
 //
-// What this first version does about it: a plain mma.sync m16n8k32 s8 GEMM
-// (128 x 128 x 64 block tiles, 8 warps of 64 x 32, cp.async double
-// buffering, no wgmma/TMA), which reaches a fraction of the int8 peak;
-// PERF.md records how far each launch is from its bound. wgmma with TMA
-// and a fused prologue are later work.
+// What the design does about it. K2's and K4's GEMM (qdense_wgmma_kernel)
+// is Hopper's: a producer warp keeps TMA loads of 128-byte-deep K
+// slices in flight through a 3-4 slot ring (128-byte swizzle, mbarriers),
+// and two consumer warpgroups run wgmma m64nNk32 s8 straight from shared
+// memory, so no thread spends instructions on operand loads; the epilogue
+// moves res and out in 16-byte accesses. Tiles are 128 x 64 (or 128 x 128
+// where the grid is large), so M = 1024, N = 1024 launches 128 blocks on
+// the 132 SMs, where 128 x 128 tiles would launch 64; two
+// blocks fit an SM. K3 keeps the port's first GEMM: a plain mma.sync
+// m16n8k32 s8 GEMM (128 x 128 x 64 block tiles, 8 warps of 64 x 32,
+// cp.async double buffering). PERF.md records how far each launch is from
+// its bound.
 //
 // Numerics follow the TPU kernels: activations are multiplied by the
 // exactly rounded reciprocal of their scale and rounded half to even
@@ -49,6 +56,7 @@
 // every launch the runtime accepts adds one to its kernel's count
 // (gsv_qmm_launch_counts), at the launch and nowhere else.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -282,55 +290,267 @@ __device__ __forceinline__ void gemm_tile(const int8_t* __restrict__ xq, const i
     }
 }
 
+// ---------------------------------------------------------------------------
+// Hopper building blocks: mbarriers, TMA tile loads, wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// one arrival that also announces `bytes` of TMA traffic on the barrier
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the barrier's phase of the given parity has completed. A wait
+// of more than ~10 s of clocks traps: a lost load or arrival ends the kernel
+// with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+    uint32_t done = 0;
+    const long long t0 = clock64();
+    do {
+        asm volatile(
+            "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(smem_u32(bar)), "r"(parity)
+            : "memory");
+        if (!done && clock64() - t0 > 20000000000LL) __trap();
+    } while (!done);
+}
+
+__device__ __forceinline__ void fence_barrier_init() { asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory"); }
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// A box of the 2-D tensor map at (c0 innermost, c1) into shared memory;
+// completion is counted in bytes on `bar`. Out-of-bounds elements are zeros.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+        :
+        : "r"(smem_u32(dst)), "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+        : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// Keeps the compiler from moving accumulator accesses across wgmma's
+// asynchronous reads and writes of them.
+template <int R>
+__device__ __forceinline__ void reg_fence(int (&d)[R]) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// wgmma descriptor of a K-major tile whose rows are 128 bytes, stored as TMA's
+// 128-byte swizzle writes it (8-row atoms of 1024 bytes, 1024-byte aligned).
+// Advancing the start address by 32 bytes steps k by one s8 wgmma.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+    return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+           ((uint64_t)1 << 62);
+}
+
+// D (64 x N, s32) += A (64 x 32, s8, shared) . B (N x 32, s8, shared)^T
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+}
+template <int BN>
+__device__ __forceinline__ void wgmma_s8(int (&d)[BN / 2], uint64_t a, uint64_t b) {
+    if constexpr (BN == 64)
+        wgmma_s8_n64(d, a, b, 1);
+    else
+        wgmma_s8_n128(d, a, b, 1);
+}
+
 __device__ __forceinline__ float gelu_tanh(float y) {
     return 0.5f * y * (1.0f + tanhf(0.7978845608028654f * (y + 0.044715f * y * y * y)));
 }
 
 // ---------------------------------------------------------------------------
-// qdense (K2): out (M, N) bf16 = epilogue(acc * sx[row] * sw[col] + b[col])
+// qdense (K2, and K4's GEMM): out (M, N) bf16 = epilogue(acc * sx[row] * sw[col] + b[col])
+//
+// One block per 128 x BN output tile. Warp 8 is the producer: one thread
+// streams 128-byte-deep K slices of x (128 rows) and W (BN rows) by TMA
+// into a ring of STAGES slots, each with a `full` barrier (the TMA bytes)
+// and an `empty` barrier (every consumer thread's release). Warpgroups 0
+// and 1 each own 64 rows of the tile and run wgmma m64nBNk32 s8 from the
+// slots as they arrive. Rows past M and K past its end load as zeros. The
+// epilogue stages the s32 tile through the (then idle) ring, and each
+// thread finishes 8 consecutive columns of a row: 16-byte loads of res and
+// stores of out, sw and bias from shared memory, loaded once per tile.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(GEMM_THREADS) qdense_kernel(
-    const int8_t* __restrict__ xq, const float* __restrict__ sx, const int8_t* __restrict__ w,
+constexpr int GEMM_CONSUMERS = 256;                 // two warpgroups
+constexpr int GEMM_THREADS_HOPPER = GEMM_CONSUMERS + 32;  // and the producer warp
+
+template <int BN>
+struct GemmCfg {
+    static constexpr int BM = 128, BK = 128;  // rows, bytes of K per slot
+    static constexpr int STAGES = BN == 64 ? 4 : 3;
+    static constexpr int A_BYTES = BM * BK, B_BYTES = BN * BK;
+    static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+    static constexpr int EPI_LD = BN + 8;  // s32 per staged row: the fragment stores hit 32 banks
+    static constexpr int RING = STAGES * STAGE_BYTES;
+    static constexpr int SMEM = 1024 + RING + 2 * BN * 4 + 2 * STAGES * 8;
+    static_assert(BM * EPI_LD * 4 <= RING, "the epilogue's staging fits in the ring");
+};
+
+template <int BN>
+__global__ void __launch_bounds__(GEMM_THREADS_HOPPER, 2) qdense_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w, const float* __restrict__ sx,
     const float* __restrict__ sw, const float* __restrict__ bias, const __nv_bfloat16* __restrict__ res,
     const float* __restrict__ gate, const float* __restrict__ mask, __nv_bfloat16* __restrict__ out, int M, int N,
     int K, int T, int gelu) {
-    __shared__ __align__(16) GemmSmem sm;
-    const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-    int acc[4][4][4];
-    gemm_tile(xq, w, M, K, m0, n0, sm, acc);
+    using C = GemmCfg<BN>;
+    extern __shared__ __align__(1024) uint8_t dyn_smem[];
+    uint8_t* smem = dyn_smem + ((1024 - (smem_u32(dyn_smem) & 1023)) & 1023);
+    uint8_t* sa = smem;
+    uint8_t* sb = smem + C::STAGES * C::A_BYTES;
+    float* s_sw = reinterpret_cast<float*>(smem + C::RING);
+    float* s_bias = s_sw + BN;
+    uint64_t* full = reinterpret_cast<uint64_t*>(s_bias + BN);
+    uint64_t* empty = full + C::STAGES;
+    const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * BN;
+    const int nk = (K + C::BK - 1) / C::BK;
+    const int tid = threadIdx.x;
+    if (tid == 0) {
+        for (int s = 0; s < C::STAGES; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], GEMM_CONSUMERS);
+        }
+        fence_barrier_init();
+    }
+    if (tid < BN) {
+        s_sw[tid] = sw[n0 + tid];
+        s_bias[tid] = bias[n0 + tid];
+    }
+    __syncthreads();
 
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-            const int row = m0 + wm + mi * 16 + g + hr * 8;
-            if (row >= M) continue;
-            const float sxr = sx[row];
-            const bool keep = mask == nullptr || mask[row] > 0.f;
-            const long long b = row / T;
-#pragma unroll
-            for (int ni = 0; ni < 4; ++ni) {
-                const int col = n0 + wn + ni * 8 + t * 2;
-                float y[2];
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    float v = (float)acc[mi][ni][hr * 2 + e] * sxr * sw[col + e] + bias[col + e];
-                    if (gelu) v = gelu_tanh(v);
-                    if (!keep) v = 0.f;
-                    y[e] = v;
-                }
-                const long long o = (long long)row * N + col;
-                if (res != nullptr) {
-                    const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(res + o));
-                    y[0] = r.x + gate[b * N + col] * y[0];
-                    y[1] = r.y + gate[b * N + col + 1] * y[1];
-                }
-                *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(y[0], y[1]);
+    if (tid >= GEMM_CONSUMERS) {  // the producer warp
+        if (tid == GEMM_CONSUMERS) {
+            for (int kt = 0; kt < nk; ++kt) {
+                const int s = kt % C::STAGES;
+                mbar_wait(&empty[s], ((kt / C::STAGES) & 1) ^ 1);
+                mbar_expect_tx(&full[s], C::STAGE_BYTES);
+                tma_load_2d(sa + s * C::A_BYTES, &tm_x, kt * C::BK, m0, &full[s]);
+                tma_load_2d(sb + s * C::B_BYTES, &tm_w, kt * C::BK, n0, &full[s]);
             }
         }
+        return;
+    }
+
+    const int wg = tid >> 7;
+    int acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+#pragma unroll 1
+    for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % C::STAGES;
+        mbar_wait(&full[s], (kt / C::STAGES) & 1);
+        const uint8_t* a = sa + s * C::A_BYTES + wg * 64 * C::BK;
+        const uint8_t* b = sb + s * C::B_BYTES;
+        reg_fence(acc);
+        wg_fence();
+#pragma unroll
+        for (int k = 0; k < C::BK / 32; ++k) wgmma_s8<BN>(acc, sw128_desc(a + 32 * k), sw128_desc(b + 32 * k));
+        wg_commit();
+        wg_wait0();
+        reg_fence(acc);
+        mbar_arrive(&empty[s]);
+    }
+
+    // epilogue: every slot has been consumed, so the ring holds the s32 tile
+    named_sync(1, GEMM_CONSUMERS);
+    int* stage = reinterpret_cast<int*>(smem);
+    {
+        const int warp = (tid & 127) >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
+        const int r = wg * 64 + warp * 16 + g;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+            const int col = j * 8 + 2 * q;
+            *reinterpret_cast<int2*>(&stage[r * C::EPI_LD + col]) = make_int2(acc[4 * j], acc[4 * j + 1]);
+            *reinterpret_cast<int2*>(&stage[(r + 8) * C::EPI_LD + col]) = make_int2(acc[4 * j + 2], acc[4 * j + 3]);
+        }
+    }
+    named_sync(1, GEMM_CONSUMERS);
+    constexpr int GROUPS = BN / 8;
+    for (int idx = tid; idx < C::BM * GROUPS; idx += GEMM_CONSUMERS) {
+        const int r = idx / GROUPS, c8 = (idx % GROUPS) * 8;
+        const int row = m0 + r;
+        if (row >= M) break;
+        const float sxr = sx[row];
+        const bool keep = mask == nullptr || mask[row] > 0.f;
+        const int4 a0 = *reinterpret_cast<const int4*>(&stage[r * C::EPI_LD + c8]);
+        const int4 a1 = *reinterpret_cast<const int4*>(&stage[r * C::EPI_LD + c8 + 4]);
+        const int av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        float y[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+            float v = (float)av[e] * sxr * s_sw[c8 + e] + s_bias[c8 + e];
+            if (gelu) v = gelu_tanh(v);
+            if (!keep) v = 0.f;
+            y[e] = v;
+        }
+        const long long o = (long long)row * N + n0 + c8;
+        if (res != nullptr) {
+            const uint4 rr = *reinterpret_cast<const uint4*>(res + o);
+            const __nv_bfloat162* rp = reinterpret_cast<const __nv_bfloat162*>(&rr);
+            const float* gp = gate + (long long)(row / T) * N + n0 + c8;
+            const float4 g0 = *reinterpret_cast<const float4*>(gp), g1 = *reinterpret_cast<const float4*>(gp + 4);
+            const float gv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const float2 rf = __bfloat1622float2(rp[e]);
+                y[2 * e] = rf.x + gv[2 * e] * y[2 * e];
+                y[2 * e + 1] = rf.y + gv[2 * e + 1] * y[2 * e + 1];
+            }
+        }
+        uint4 packed;
+        __nv_bfloat162* pp = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pp[e] = __floats2bfloat162_rn(y[2 * e], y[2 * e + 1]);
+        *reinterpret_cast<uint4*>(out + o) = packed;
     }
 }
 
@@ -394,15 +614,71 @@ __global__ void __launch_bounds__(GEMM_THREADS) qkv_rope_kernel(
     }
 }
 
-// The one launch of qdense_kernel, counted under `c`: K2's (gsv_qdense) or
-// K4's GEMM (gsv_qdense_out).
+// cuTensorMapEncodeTiled of libcuda, found at run time through the CUDA
+// runtime (no link against libcuda).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+    static EncodeTiledFn fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+        const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+        const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+        if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
+    }
+    return fn;
+}
+
+// A row-major (rows, cols) int8 matrix read in boxes of box_rows x 128 bytes
+// with the 128-byte swizzle; cols % 16 == 0.
+bool tmap_u8(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+    const EncodeTiledFn enc = encode_tiled();
+    if (enc == nullptr) return false;
+    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)cols};
+    const cuuint32_t box[2] = {128, (cuuint32_t)box_rows};
+    const cuuint32_t unit[2] = {1, 1};
+    return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box, unit,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN>
+cudaError_t launch_qdense_bn(const int8_t* xq, const float* sx, const int8_t* w, const float* sw, const float* bias,
+                             const void* res, const float* gate, const float* mask, void* out, int M, int N, int K,
+                             int T, int gelu, int grid_m, Counter c, void* stream) {
+    using C = GemmCfg<BN>;
+    CUtensorMap tx, tw;
+    if (!tmap_u8(&tx, xq, M, K, C::BM) || !tmap_u8(&tw, w, N, K, BN)) return cudaErrorInvalidValue;
+    static bool sized = false;
+    if (!sized) {  // and all of the SM's unified memory as shared, so that two blocks fit
+        cudaFuncSetAttribute(qdense_wgmma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+        cudaFuncSetAttribute(qdense_wgmma_kernel<BN>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+        sized = true;
+    }
+    qdense_wgmma_kernel<BN><<<dim3(N / BN, grid_m), GEMM_THREADS_HOPPER, C::SMEM, (cudaStream_t)stream>>>(
+        tx, tw, sx, sw, bias, (const __nv_bfloat16*)res, gate, mask, (__nv_bfloat16*)out, M, N, K, T, gelu);
+    return counted(c);
+}
+
+// The one launch site of the s8 GEMM, counted under `c`: K2's (gsv_qdense) or
+// K4's (gsv_qdense_out). The wrapper's plan (ops/qmatmul.py gemm_plan) gives
+// the tile width (64 or 128) and the row blocks.
 cudaError_t launch_qdense(const int8_t* xq, const float* sx, const int8_t* w, const float* sw, const float* bias,
                           const void* res, const float* gate, const float* mask, void* out, int M, int N, int K,
-                          int T, int gelu, Counter c, void* stream) {
-    const dim3 grid(N / BN, (M + BM - 1) / BM);
-    qdense_kernel<<<grid, GEMM_THREADS, 0, (cudaStream_t)stream>>>(
-        xq, sx, w, sw, bias, (const __nv_bfloat16*)res, gate, mask, (__nv_bfloat16*)out, M, N, K, T, gelu);
-    return counted(c);
+                          int T, int gelu, int tile_n, int grid_m, Counter c, void* stream) {
+    if (tile_n == 64)
+        return launch_qdense_bn<64>(xq, sx, w, sw, bias, res, gate, mask, out, M, N, K, T, gelu, grid_m, c, stream);
+    if (tile_n == 128)
+        return launch_qdense_bn<128>(xq, sx, w, sw, bias, res, gate, mask, out, M, N, K, T, gelu, grid_m, c, stream);
+    return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -425,19 +701,23 @@ int gsv_row_quant_heads(const void* x, int8_t* xq, float* sx, int M, int K, int 
     return (int)counted(C_ROWQH);
 }
 
-// K % 64 == 0, N % 128 == 0. res (M, N) bf16 and gate (M / T, N) f32, or both
-// null; mask (M) f32 or null; out (M, N) bf16.
+// K % 64 == 0, N % tile_n == 0 (tile_n 64 or 128), grid_m = ceil(M / 128).
+// res (M, N) bf16 and gate (M / T, N) f32, or both null; mask (M) f32 or
+// null; out (M, N) bf16.
 int gsv_qdense(const int8_t* xq, const float* sx, const int8_t* w, const float* sw, const float* bias, const void* res,
-               const float* gate, const float* mask, void* out, int M, int N, int K, int T, int gelu, void* stream) {
-    return (int)launch_qdense(xq, sx, w, sw, bias, res, gate, mask, out, M, N, K, T, gelu, C_QDENSE, stream);
+               const float* gate, const float* mask, void* out, int M, int N, int K, int T, int gelu, int tile_n,
+               int grid_m, void* stream) {
+    return (int)launch_qdense(xq, sx, w, sw, bias, res, gate, mask, out, M, N, K, T, gelu, tile_n, grid_m, C_QDENSE,
+                              stream);
 }
 
 // K4's GEMM: gsv_qdense without gelu, on row_quant_heads' codes, counted as
 // K4's launch.
 int gsv_qdense_out(const int8_t* xq, const float* sx, const int8_t* w, const float* sw, const float* bias,
                    const void* res, const float* gate, const float* mask, void* out, int M, int N, int K, int T,
-                   void* stream) {
-    return (int)launch_qdense(xq, sx, w, sw, bias, res, gate, mask, out, M, N, K, T, 0, C_QOUT, stream);
+                   int tile_n, int grid_m, void* stream) {
+    return (int)launch_qdense(xq, sx, w, sw, bias, res, gate, mask, out, M, N, K, T, 0, tile_n, grid_m, C_QOUT,
+                              stream);
 }
 
 // three (N, K) int8 weights; cos/sin (T, dh / 2) f32; q, k, v (M / T, N / dh, T, dh) bf16.

@@ -22,7 +22,7 @@ from gpt_sovits_tpu_torch.ops import build
 from gpt_sovits_tpu_torch.ops.qmatmul import INV127, check, on_card, raise_on
 
 HEAD_DIM = 64  # the only head width the kernel takes
-KEY_TILE = 64  # keys per tile (csrc/qflash.cu KB): V's int8 copy is padded to it
+KEY_TILE = 128  # keys per tile (csrc/qflash.cu KB): V's int8 copy is padded to it
 
 # the kernels, in the order gsv_qflash_launch_counts reports their launches
 KERNELS = ("v_quant", "flash_attn_int8")
@@ -41,6 +41,12 @@ def reset_launch_counts() -> None:
     lib = build.loaded("qflash")
     if lib is not None:
         lib.gsv_qflash_reset_launch_counts()
+
+
+def key_pad(t: int) -> int:
+    """T rounded up to whole key tiles: the length of v8t's rows, which
+    flash_attn's TMA reads a tile at a time (zeros past T)."""
+    return -(-t // KEY_TILE) * KEY_TILE
 
 
 def flash_attn_int8_plain(q, k, v, mask=None, *, sm_scale: float):
@@ -93,7 +99,7 @@ def flash_attn_int8(q, k, v, mask=None, *, sm_scale: float):
         return flash_attn_int8_plain(q, k, v, mask, sm_scale=sm_scale)
     if dh != HEAD_DIM:
         raise ValueError(f"flash_attn_int8 takes dim_head {HEAD_DIM}, got {dh}")
-    t_pad = -(-t // KEY_TILE) * KEY_TILE
+    t_pad = key_pad(t)
     v8t = torch.empty((b, h, dh, t_pad), dtype=torch.int8, device=dev)
     sv = torch.empty((b, h, dh), dtype=torch.float32, device=dev)
     out = torch.empty((b, t, h * dh), dtype=torch.bfloat16, device=dev)

@@ -4,8 +4,8 @@ gpt_sovits_tpu/ops/pallas/qmatmul.py `qdense_int8`, `qkv_rope_int8` and
 
 On CUDA tensors each wrapper launches the kernels of ``csrc/qmatmul.cu``
 (``row_quant``, then ``qdense`` or ``qkv_rope``; for K4 ``row_quant_heads``,
-then the qdense GEMM; the note at the top of that file says what bounds
-them); on CPU tensors it takes its plain PyTorch twin
+then the qdense GEMM, tiled as ``gemm_plan`` says; the note at the top of
+that file says what bounds them); on CPU tensors it takes its plain PyTorch twin
 (``qdense_int8_plain``, ``qkv_rope_int8_plain``, ``qdense_out_int8_plain``),
 which is what the kernels are held against. There is no other route.
 
@@ -27,8 +27,11 @@ from gpt_sovits_tpu_torch.ops import build
 
 INV127 = float(np.float32(1.0 / 127.0))
 LN_EPS = 1e-6
-GEMM_TILE_N = 128  # output columns per GEMM block (csrc/qmatmul.cu BN)
-GEMM_TILE_K = 64  # reduction step (BK)
+GEMM_TILE_N = 128  # N must be a multiple of this (K3's block width, and the wide qdense tile)
+GEMM_TILE_K = 64  # K must be a multiple of this (the TMA rows are 16-byte aligned; the last slot is zero-filled)
+GEMM_TILE_M = 128  # output rows per qdense block (csrc/qmatmul.cu GemmCfg::BM)
+GEMM_TILES_N = (64, 128)  # the qdense block widths the kernel is built for
+SMS = 132  # streaming multiprocessors of the H100 SXM
 MAX_K = 2048  # row_quant holds a row of at most this many values
 
 # the kernels, in the order gsv_qmm_launch_counts reports their launches
@@ -166,10 +169,10 @@ def _lib():
     if not getattr(lib, "_gsv_typed", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.gsv_row_quant.argtypes = [P, P, P, P, P, I, I, I, I, P]
-        lib.gsv_qdense.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P]
+        lib.gsv_qdense.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
         lib.gsv_qkv_rope.argtypes = [P] * 16 + [I, I, I, I, I, F, P]
         lib.gsv_row_quant_heads.argtypes = [P, P, P, I, I, I, I, P]
-        lib.gsv_qdense_out.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, P]
+        lib.gsv_qdense_out.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P]
         for fn in (lib.gsv_row_quant, lib.gsv_qdense, lib.gsv_qkv_rope, lib.gsv_row_quant_heads, lib.gsv_qdense_out):
             fn.restype = ctypes.c_int
         lib.gsv_qmm_launch_counts.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
@@ -214,6 +217,18 @@ def on_card(t) -> bool:
     raise ValueError(f"no kernel for device {t.device}")
 
 
+def gemm_plan(m: int, n: int) -> tuple[int, int]:
+    """(tile_n, grid_m) of the qdense GEMM for an (m, n) output: blocks of
+    GEMM_TILE_M rows (the last one ragged) by tile_n columns, launched as a
+    (n / tile_n, grid_m) grid. 128-column tiles where they alone give every
+    SM a block, else 64-column ones (two fit an SM): at B = 1 (M = 1024,
+    N = 1024) that is 128 blocks for the 132 SMs instead of 64. The
+    threshold is measured (chip_smoke.py gemm_tile_phase, PERF.md)."""
+    grid_m = -(-m // GEMM_TILE_M)
+    tile_n = 128 if grid_m * (n // 128) >= SMS else 64
+    return tile_n, grid_m
+
+
 def _check_gemm(k: int, n: int):
     if k % GEMM_TILE_K or k > MAX_K:
         raise ValueError(f"the int8 GEMM takes K a multiple of {GEMM_TILE_K} up to {MAX_K}, got {k}")
@@ -240,6 +255,30 @@ def _row_quant(x, ln_mod):
     )
     raise_on(rc, "row_quant")
     return xq, sx
+
+
+def _gemm(xq, sx, wq, sw, bias, res, gate, mask, t: int, *, gelu: bool = False, heads_in: bool = False,
+          tile_n: int | None = None):
+    """Launch the qdense GEMM on row_quant's codes xq (M, K) and scales sx
+    (M,): out (M / t, t, N) bf16. heads_in counts the launch as K4's
+    (gsv_qdense_out, no gelu). tile_n overrides gemm_plan's width (a
+    measurement's knob)."""
+    m, k = xq.shape
+    n = wq.shape[0]
+    plan_n, grid_m = gemm_plan(m, n)
+    tile_n = plan_n if tile_n is None else tile_n
+    if tile_n not in GEMM_TILES_N:
+        raise ValueError(f"qdense tiles are {GEMM_TILES_N} columns wide, got {tile_n}")
+    out = torch.empty((m // t, t, n), dtype=torch.bfloat16, device=xq.device)
+    ptrs = (xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), sw.data_ptr(), bias.data_ptr(),
+            res.data_ptr() if res is not None else None, gate.data_ptr() if gate is not None else None,
+            mask.data_ptr() if mask is not None else None, out.data_ptr(), m, n, k, t)
+    stream = torch.cuda.current_stream(xq.device).cuda_stream
+    if heads_in:
+        raise_on(_lib().gsv_qdense_out(*ptrs, tile_n, grid_m, stream), "qdense_out_int8")
+    else:
+        raise_on(_lib().gsv_qdense(*ptrs, int(gelu), tile_n, grid_m, stream), "qdense_int8")
+    return out
 
 
 def qdense_int8(x, wq, sw, bias, ln_mod=None, res_gate=None, mask=None, *, act=None):
@@ -270,14 +309,7 @@ def qdense_int8(x, wq, sw, bias, ln_mod=None, res_gate=None, mask=None, *, act=N
         return qdense_int8_plain(x, wq, sw, bias, ln_mod, res_gate, mask, act=act)
     squeeze, x = x.ndim == 2, x3
     xq, sx = _row_quant(x, ln_mod)
-    out = torch.empty((b, t, n), dtype=torch.bfloat16, device=dev)
-    rc = _lib().gsv_qdense(
-        xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), sw.data_ptr(), bias.data_ptr(),
-        res.data_ptr() if res is not None else None, gate.data_ptr() if gate is not None else None,
-        mask.data_ptr() if mask is not None else None, out.data_ptr(), b * t, n, k, t, int(act == "gelu"),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    raise_on(rc, "qdense_int8")
+    out = _gemm(xq, sx, wq, sw, bias, res, gate, mask, t, gelu=act == "gelu")
     return out[0] if squeeze else out
 
 
@@ -355,11 +387,4 @@ def qdense_out_int8(attn, wq, sw, bias, res_gate_mask=None):
     sx = torch.empty((b * t,), dtype=torch.float32, device=dev)
     raise_on(lib.gsv_row_quant_heads(attn.data_ptr(), xq.data_ptr(), sx.data_ptr(), b * t, k, t, dh, stream),
              "row_quant_heads")
-    out = torch.empty((b, t, n), dtype=torch.bfloat16, device=dev)
-    rc = lib.gsv_qdense_out(
-        xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), sw.data_ptr(), bias.data_ptr(),
-        res.data_ptr() if res is not None else None, gate.data_ptr() if gate is not None else None,
-        mask.data_ptr() if mask is not None else None, out.data_ptr(), b * t, n, k, t, stream,
-    )
-    raise_on(rc, "qdense_out_int8")
-    return out
+    return _gemm(xq, sx, wq, sw, bias, res, gate, mask, t, heads_in=True)

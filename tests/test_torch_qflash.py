@@ -101,3 +101,21 @@ def test_twin_takes_a_t_pallas_rejects():
     # stay at the int8 rounding level
     np.testing.assert_allclose(got[0, : t - 40], ref, rtol=4e-2, atol=5e-2)
     assert np.abs(got[0, : t - 40] - ref).mean() < 5e-3
+
+
+@pytest.mark.parametrize("t", [1, 127, 128, 129, 1000, 1024, 2048, 2560])
+def test_key_pad_whole_tiles(t):
+    """v8t's rows hold T rounded up to whole 128-key tiles: every key of T
+    lies in exactly one tile, and no tile lies wholly past T."""
+    from gpt_sovits_tpu_torch.ops.qflash import KEY_TILE, key_pad
+
+    tp = key_pad(t)
+    assert tp % KEY_TILE == 0 and t <= tp < t + KEY_TILE
+
+
+def test_flash_checks_the_layout_on_the_cpu():
+    q = torch.zeros((1, 2, 8, 64))
+    with pytest.raises(ValueError, match="shape"):
+        flash_attn_int8(q, torch.zeros((1, 2, 9, 64)), q, sm_scale=0.125)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attn_int8(q, torch.zeros((1, 8, 2, 64)).transpose(1, 2), q, sm_scale=0.125)

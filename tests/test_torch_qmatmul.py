@@ -164,3 +164,44 @@ def test_kernel_wrappers_take_the_twin_only_on_cpu():
     x = torch.zeros((1, 4, 64))
     with pytest.raises(ValueError, match="no kernel"):
         qmatmul.qdense_int8(x.to("meta"), torch.zeros((128, 64), dtype=torch.int8), torch.ones(128), torch.zeros(128))
+
+
+@pytest.mark.parametrize("m, n", [(1024, 1024), (1024, 2048), (4096, 1024), (2560, 1024), (10240, 1024),
+                                  (1000, 1024), (100, 2048), (1, 128), (8 * 1024, 2048)])
+def test_gemm_plan_covers_every_output_once(m, n):
+    """The qdense GEMM's grid, as csrc/qmatmul.cu walks it (block (x, y):
+    rows y*128.., columns x*tile_n..; rows past M are skipped), covers each
+    output element exactly once, for the main path's shapes (B x 1024 rows,
+    N 1024 / 2048, K4's 2560) and ragged ones."""
+    tile_n, grid_m = qmatmul.gemm_plan(m, n)
+    assert tile_n in qmatmul.GEMM_TILES_N and n % tile_n == 0
+    hits = np.zeros((m, n), np.int32)
+    for y in range(grid_m):
+        for x in range(n // tile_n):
+            hits[y * qmatmul.GEMM_TILE_M:(y + 1) * qmatmul.GEMM_TILE_M, x * tile_n:(x + 1) * tile_n] += 1
+    assert (hits == 1).all()
+    # no block lies wholly past M
+    assert (grid_m - 1) * qmatmul.GEMM_TILE_M < m
+
+
+def test_gemm_plan_fills_the_card_at_the_dit_shapes():
+    """At B = 1 (M = 1024) every DiT projection launches at least 128
+    blocks: 64-column tiles where 128-column ones would leave SMs idle;
+    128-column tiles once they alone cover the 132 SMs (K4 at B = 1, every
+    projection at B = 4)."""
+    for n in (1024, 2048):
+        tile_n, grid_m = qmatmul.gemm_plan(1024, n)
+        assert tile_n == 64 and grid_m * n // tile_n >= 128
+    assert qmatmul.gemm_plan(2560, 1024)[0] == 128
+    for n in (1024, 2048):
+        assert qmatmul.gemm_plan(4096, n)[0] == 128
+
+
+def test_gemm_contract_checked_on_the_cpu():
+    """K % 64, K <= 2048 and N % 128 are refused on every device."""
+    x = torch.zeros((1, 4, 96))
+    with pytest.raises(ValueError, match="multiple of 64"):
+        qmatmul.qdense_int8(x, torch.zeros((128, 96), dtype=torch.int8), torch.ones(128), torch.zeros(128))
+    x = torch.zeros((1, 4, 128))
+    with pytest.raises(ValueError, match="multiple of 128"):
+        qmatmul.qdense_int8(x, torch.zeros((192, 128), dtype=torch.int8), torch.ones(192), torch.zeros(192))
