@@ -1,14 +1,15 @@
-"""Copies of the port with one fault planted in a CUDA kernel (K6
-`csrc/snake_aa.cu`, K4's path and the s8 GEMM of K2/K4 in
-`csrc/qmatmul.cu` and its plan in `ops/qmatmul.py`, K5 `csrc/qflash.cu`),
-each of which must fail chip_smoke.py's check of that kernel on the card.
+"""Copies of the port with one fault planted in a CUDA kernel (K1's whole
+step and its part kernels in `csrc/decode_step.cu`, K6 `csrc/snake_aa.cu`,
+K3, K4's path and the s8 GEMM of K2/K3/K4 in `csrc/qmatmul.cu` and its plan
+in `ops/qmatmul.py`, K5 `csrc/qflash.cu`), each of which must fail
+chip_smoke.py's check of that kernel on the card.
 
     python3 broken_copies.py        # one CUDA card; exits non-zero if a copy passes its check
 
 Each copy is gpt_sovits_tpu_torch/ and chip_smoke.py under a temporary
 directory outside the checkout, with one line of one source replaced; its
-checks (chip_smoke.snake_case, k4_case, k5_case or gemm_case at a main-path
-shape) run in a child process there, which builds the copy's kernels. The
+checks (chip_smoke.k1_case, attn_cases, snake_case, k3_case, k4_case,
+k5_case or gemm_case at a main-path shape) run in a child process there, which builds the copy's kernels. The
 same checks run first on the unbroken sources and must pass. One JSON line
 per copy and check: the check's outcome and the end of its assertion
 message.
@@ -24,11 +25,20 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+DS = "gpt_sovits_tpu_torch/csrc/decode_step.cu"
 SNAKE = "gpt_sovits_tpu_torch/csrc/snake_aa.cu"
 QMM = "gpt_sovits_tpu_torch/csrc/qmatmul.cu"
 QMM_PY = "gpt_sovits_tpu_torch/ops/qmatmul.py"
 QFLASH = "gpt_sovits_tpu_torch/csrc/qflash.cu"
 CHECKS = {
+    # K1's whole step at full width, random and peaked inputs (step_cases)
+    "k1_int8": "c.k1_case('int8', 1, g)",
+    "k1_bf16": "c.k1_case('bf16', 4, g)",
+    # K1's decode_attn part kernel, random and peaked inputs
+    "attn_int8": "c.attn_cases('int8', 1, g)",
+    "attn_bf16": "c.attn_cases('bf16', 8, g)",
+    # K3 at the DiT chunk (T 1024) with a q scale
+    "k3_b1": "c.k3_case(1, 1024, 0.125, g)",
     # a stage shape whose T (8896) is not a multiple of the 1024-sample tile
     "snake_f32": "c.snake_case(768, 8896, torch.float32, g)",
     "snake_bf16": "c.snake_case(768, 8896, torch.bfloat16, g)",
@@ -43,6 +53,26 @@ CHECKS = {
 }
 # (name, source, the line as it is, the broken line, checks that must fail)
 COPIES = [
+    ("K1: the grid barrier after the attention phase skipped", DS, "        grid_sync(a.sync, base + ++n_bar * GRID);  // ctx written",
+     "        // barrier skipped", ("k1_int8", "k1_bf16")),
+    ("K1: mask ignored", DS, "            if (!(mk[r] > 0.f)) sc[r] = NEG;", "            // mask ignored",
+     ("k1_int8", "k1_bf16")),
+    ("K1: the fresh K/V dropped", DS, "    const float w_self = expf(sc_self - m_all);  // the fresh K/V's weight",
+     "    const float w_self = 0.f;", ("k1_int8", "k1_bf16")),
+    ("K1: the last layer skipped", DS, "    for (int l = 0; l < a.L; ++l) {", "    for (int l = 0; l < a.L - 1; ++l) {",
+     ("k1_int8", "k1_bf16")),
+    ("K1 decode_attn: mask ignored", DS, "        if (!(mask[(size_t)b * T + t] > 0.f)) sc = NEG;",
+     "        // mask ignored", ("attn_int8", "attn_bf16")),
+    ("K1 decode_attn: the fresh K/V dropped", DS, "    const float p_self = expf(sc_self - m_all);",
+     "    const float p_self = 0.f;", ("attn_int8", "attn_bf16")),
+    ("K3: rotary on no head", QMM, "        if (rotate && col < dh) {", "        if (false) {", ("k3_b1",)),
+    ("K3: rotary on every head", QMM, "        if (rotate && col < dh) {", "        if (rotate) {", ("k3_b1",)),
+    ("K3: the rotary table read one position off", QMM, "            const size_t rt = (size_t)tt * half + col / 2;",
+     "            const size_t rt = (size_t)(tt + 1) * half + col / 2;", ("k3_b1",)),
+    ("K3: q_scale dropped", QMM, "        if (z == 0 && q_scale != 1.0f) {", "        if (false) {", ("k3_b1",)),
+    ("K3: v projected with k's weights", QMM,
+     "    const CUtensorMap* tm_w = z == 0 ? &tm_wq : z == 1 ? &tm_wk : &tm_wv;",
+     "    const CUtensorMap* tm_w = z == 0 ? &tm_wq : &tm_wk;", ("k3_b1",)),
     ("K6: s's index not clamped (the interior formula carried on through x at the edges)", SNAKE,
      "    m = min(max(m, 0), two_t - 1);", "    // m not clamped", ("snake_f32", "snake_bf16")),
     ("K6: the next channel's alpha and beta", SNAKE, "    const int c = (int)(row % C);",
@@ -57,7 +87,7 @@ COPIES = [
     ("K4: pad-row mask ignored (the GEMM's epilogue)", QMM,
      "        const bool keep = mask == nullptr || mask[row] > 0.f;", "        const bool keep = true;", ("k4",)),
     ("GEMM: the last K slot dropped", QMM, "    const int nk = (K + C::BK - 1) / C::BK;",
-     "    const int nk = (K + C::BK - 1) / C::BK - 1;", ("k4", "gemm_ragged")),
+     "    const int nk = (K + C::BK - 1) / C::BK - 1;", ("k4", "gemm_ragged", "k3_b1")),
     ("GEMM: a ragged M's last row block dropped", QMM_PY, "    grid_m = -(-m // GEMM_TILE_M)",
      "    grid_m = m // GEMM_TILE_M", ("gemm_ragged",)),
     ("K5: mask ignored", QFLASH, "    return (maskb == nullptr || maskb[key] > 0.f) ? 0.f : -1e9f;",

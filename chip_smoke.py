@@ -4,40 +4,43 @@ the full-width v2ProPlus, v4 and v3 zero-shot pipelines through them, and
 prints one JSON line per phase.
 
     python3 chip_smoke.py            # one CUDA card; exits non-zero on any failure
-    python3 chip_smoke.py --parent smoke_tree/parent   # also time K2/K4/K5 on an earlier tree's kernels
+    python3 chip_smoke.py --parent smoke_tree/parent   # also time K1-K5 on an earlier tree's kernels
 
-Phases: device, build, kernels (K1's kernels at L=24, D=512, H=16, F=2048,
-T_pad=1024, a live prefix of 745, B in {1, 8}, bf16 and int8/int8;
-decode_attn also on a peaked softmax that a masking or fresh-K/V fault
-moves far past its bar), widths (the whole step at B = 2..7 in both modes,
-held only), path (v2ProPlus: set_ref_audio + several `run` requests with
-random full-width weights made from --seed, launch counts read from the CUDA
-code), teacher (a greedy S1 trajectory through the kernels vs the plain
-twin), stream_v2 (one run_streaming request: a fragment per segment, each of
-its tokens' length plus the silence, and the time to the first); then for
-v4: kernels (K2, K3, K5 at dim 1024, 16 x 64 heads, ff 2048,
-T=1024 with 1000 real frames, B in {1, 4}, on inputs where a mask or rotary
-fault shows; K5 also at T = 1000 and 2048; device time split into the
-GEMM or flash_attn body and the row_quant / v_quant helper), path_v4
-(set_ref_audio with a transcript + two `run` requests through S1, the
-int8 DiT CFM and the 48 kHz vocoder, one of them a
-multi-chunk CFM batch; launch counts from the CUDA code equal the per-call
-counts times the CFM calls), cfm_teacher (one full-width CFM chunk through
-the kernels and through the twins, and its profile); then for v3:
-v3_kernels (K6 at BigVGAN's six stage shapes of a 2224-frame mel in bf16 and
-f32, on x of amplitude 5-20 with per-channel alpha and beta, edges held on
-their own; K4 at (B, 16, 2560, 64) for B in {1, 4}, heads of different
-scales, 50x pad rows under the mask), path_v3 (set_ref_audio with a
-transcript, then a batched request at 24 kHz, a serial one with AP-BWE at
-48 kHz and a streamed one, through S1, the int8 DiT CFM, BigVGAN and
-AP-BWE; launch counts from the CUDA code: 109 snake_aa a vocoder call, the
-v4 counts a CFM call), v3_profile (one BigVGAN and one AP-BWE call under
-the profiler), snake_in_call (K6's 109 launches inside one BigVGAN call
-under the profiler, and the device time its twins take in their place),
-cfm_long (one CFM call at T=2560 through K3 -> SDPA
--> K4 -> K2 and through the twins); gemm_tiles (the s8 GEMM alone at each
-tile width, beside gemm_plan's choice); with --parent, compare_trees (K2,
-K4, K5 timed on the earlier tree's kernels and on this tree's, in turns);
+Phases: device, build, kernels (K1 at L=24, D=512, H=16, F=2048, T_pad=1024,
+a live prefix of 745, B in {1, 8}, bf16 and int8/int8: the whole-step kernel
+on random inputs and on a step whose layer-0 attention is peaked on the
+fresh token with large keys in a masked hole (step_cases), and the part
+kernels proj, decode_attn (also on a peaked softmax) and add_layernorm),
+widths (the whole step at B = 2..7 in both modes, random and peaked, held
+only), path (v2ProPlus: set_ref_audio + several `run` requests with random
+full-width weights made from --seed; launch counts read from the CUDA code:
+one whole-step launch an S1 step, no part launch), teacher (a greedy S1
+trajectory through the kernel vs the plain twin), stream_v2 (one
+run_streaming request: a fragment per segment, each of its tokens' length
+plus the silence, and the time to the first); then for v4: kernels (K2, K3,
+K5 at dim 1024, 16 x 64 heads, ff 2048, T=1024 with 1000 real frames, B in
+{1, 4}, on inputs where a mask or rotary fault shows; K3 also with a q scale
+and at T = 1000, K5 at T = 1000 and 2048; device time split into the GEMM or
+flash_attn body and the row_quant / v_quant helper), path_v4 (set_ref_audio
+with a transcript + two `run` requests through S1, the int8 DiT CFM and the
+48 kHz vocoder, one of them a multi-chunk CFM batch; launch counts from the
+CUDA code equal the per-call counts times the CFM calls, and one K1 launch
+an S1 step), cfm_teacher (one full-width CFM chunk through the kernels and
+through the twins, and its profile); then for v3: v3_kernels (K6 at
+BigVGAN's six stage shapes of a 2224-frame mel in bf16 and f32, on x of
+amplitude 5-20 with per-channel alpha and beta, edges held on their own; K4
+at (B, 16, 2560, 64) for B in {1, 4}, heads of different scales, 50x pad
+rows under the mask), path_v3 (set_ref_audio with a transcript, then a
+batched request at 24 kHz, a serial one with AP-BWE at 48 kHz and a streamed
+one, through S1, the int8 DiT CFM, BigVGAN and AP-BWE; launch counts from
+the CUDA code: 109 snake_aa a vocoder call, the v4 counts a CFM call, one K1
+launch an S1 step), v3_profile (one BigVGAN and one AP-BWE call under the
+profiler), snake_in_call (K6's 109 launches inside one BigVGAN call under
+the profiler, and the device time its twins take in their place), cfm_long
+(one CFM call at T=2560 through K3 -> SDPA -> K4 -> K2 and through the
+twins); gemm_tiles (the s8 GEMM alone at each tile width, K2/K4's and K3's,
+beside gemm_plan's choice); with --parent, compare_trees (K2, K4, K5, K3 and
+K1's step timed on the earlier tree's kernels and on this tree's, in turns);
 then the `kernels` summary line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Bounds use the H100 SXM's
 published peaks (3.35 TB/s; 989 TFLOP/s bf16, 1979 TOP/s int8, 67 TFLOP/s
@@ -101,11 +104,12 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return a.elapsed_time(b) / iters
 
 
-def device_events(fn, iters: int, attempts: int = 3):
+def device_events(fn, iters: int, attempts: int = 3, complete=None):
     """The device kernels of `iters` calls of fn(i) under torch.profiler
     (CUPTI), as key_averages() sums them by name. Now and then the profiler
-    returns a window without any device event; such a window is run again,
-    up to `attempts` times in all. None if every window came back empty."""
+    returns a window without any device event, or drops a few of them; a
+    window that is empty, or that `complete(evs)` finds short, is run again,
+    up to `attempts` times in all. None if no window came back whole."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -115,9 +119,29 @@ def device_events(fn, iters: int, attempts: int = 3):
                 fn(i)
             torch.cuda.synchronize()
         evs = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
-        if evs:
+        if evs and (complete is None or complete(evs)):
             return evs
     return None
+
+
+def queued_ms(fn, iters: int) -> float:
+    """Mean device time of fn(i) between two CUDA events, each call queued
+    behind a spin kernel long enough for the host to enqueue the events and
+    the call before the device reaches them, so that no launch gap falls
+    between the events. For one kernel launch, its device time plus an
+    event's few microseconds; read apart from the profiler."""
+    fn(0)
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for i in range(iters):
+        torch.cuda._sleep(4_000_000)  # ~2 ms of clocks
+        a.record()
+        fn(i)
+        b.record()
+        torch.cuda.synchronize()
+        total += a.elapsed_time(b)
+    return total / iters
 
 
 HELPERS = ("row_quant", "v_quant")  # kernel names of the int8 kernels' helper launches (row_quant_heads too)
@@ -161,31 +185,60 @@ def rel_err(a, b) -> float:
 # ---------------------------------------------------------------------------
 
 
-def step_inputs(quant: str, b: int, g: torch.Generator):
-    """A full (L, b, T_PAD) cache with a live prefix of LIVE slots and a
-    left-padding hole in row 0, and a hidden state x (B, D)."""
+def step_cache(b: int, g: torch.Generator, live: int = LIVE, t_pad: int = T_PAD):
+    """A float (L, b, t_pad, 2D) K||V cache, a mask with a live prefix of
+    `live` slots and a left-padding hole in row 0, and a hidden state x (B, D)."""
     dev = torch.device("cuda")
-    kv_f = torch.randn((L, b, T_PAD, 2 * D), generator=g, device=dev) * 0.5
-    kv, kv_s = ds.quantize_kv_cache(kv_f) if quant == "int8" else (kv_f.to(torch.bfloat16), None)
-    mask = torch.zeros((b, T_PAD), device=dev)
-    mask[:, :LIVE] = 1.0
+    kv_f = torch.randn((L, b, t_pad, 2 * D), generator=g, device=dev) * 0.5
+    mask = torch.zeros((b, t_pad), device=dev)
+    mask[:, :live] = 1.0
     mask[0, 5:37] = 0.0
-    return kv, kv_s, mask, torch.randn((b, D), generator=g, device=dev)
+    return kv_f, mask, torch.randn((b, D), generator=g, device=dev)
 
 
-def hold_step(w, quant: str, kv, kv_s, mask, x) -> tuple[float, float]:
-    """One step through the kernels and through the twin on the card, each
+def _step_kv(kv_f: torch.Tensor, quant: str):
+    return ds.quantize_kv_cache(kv_f) if quant == "int8" else (kv_f.to(torch.bfloat16), None)
+
+
+def step_inputs(quant: str, b: int, g: torch.Generator, live: int = LIVE, t_pad: int = T_PAD):
+    """step_cache's inputs with the cache in the given mode: kv, kv_s, mask, x."""
+    kv_f, mask, x = step_cache(b, g, live, t_pad)
+    return (*_step_kv(kv_f, quant), mask, x)
+
+
+def peaked_step_inputs(w, quant: str, b: int, g: torch.Generator, live: int = LIVE, t_pad: int = T_PAD):
+    """step_inputs with layer 0's attention peaked on the fresh token. For
+    each (row, head), with q the scaled query that layer 0 makes of x (the
+    twin's projection), the live keys score -30 and the keys of a hole
+    masked in every row (slots 5..36) score +30 and carry V = 5. So the fresh
+    K/V takes nearly all of layer 0's attention: a step that ignores the mask
+    takes V = 5 from the hole instead, and one that drops the fresh K/V takes
+    the mean of the live prefix's V."""
+    kv_f, mask, x = step_cache(b, g, live, t_pad)
+    w0 = ds.from_fragment_order(w["wqkv"][:1])[0].t()
+    q = ds.proj_plain(x, w0, w["bqkv"][0], w["wqkv_s"][0] if quant == "int8" else None)[:, :D]
+    q = (q * (1.0 / np.sqrt(D // H))).reshape(b, 1, H, D // H)
+    u = (q / (q * q).sum(-1, keepdim=True)).reshape(b, 1, D)  # q . (c u) = c, head by head
+    kv_f[0, :, :live, :D] = -30.0 * u
+    kv_f[0, :, 5:37, :D] = 30.0 * u
+    kv_f[0, :, 5:37, D:] = 5.0
+    mask[:, 5:37] = 0.0
+    return (*_step_kv(kv_f, quant), mask, x)
+
+
+def hold_step(w, quant: str, kv, kv_s, mask, x, live: int = LIVE) -> tuple[float, float]:
+    """One step through the kernel and through the twin on the card, each
     on its own copy of the cache: hidden state and the new K/V within the
     JAX tests' bars (bf16: 2e-2 abs; int8: rel 0.02, the probability scale
     being per split). Returns the hidden state's (max abs, mean rel) error."""
 
     def step(fn):
-        return fn(x, w, kv.clone(), mask, LIVE, kv_s.clone() if kv_s is not None else None, num_heads=H)
+        return fn(x, w, kv.clone(), mask, live, kv_s.clone() if kv_s is not None else None, num_heads=H)
 
     def new_kv(out):
-        kv_new = out[1][:, :, LIVE].float()
+        kv_new = out[1][:, :, live].float()
         if quant == "int8":  # dequantize each side with its own per-token scales
-            s_new = out[2][:, :, :, LIVE]
+            s_new = out[2][:, :, :, live]
             kv_new = torch.cat([kv_new[..., :D] * s_new[:, :, :1], kv_new[..., D:] * s_new[:, :, 1:]], -1)
         return kv_new
 
@@ -195,6 +248,34 @@ def hold_step(w, quant: str, kv, kv_s, mask, x) -> tuple[float, float]:
     kv_abs, kv_rel = float((new_kv(got) - new_kv(ref)).abs().max()), rel_err(new_kv(got), new_kv(ref))
     assert (kv_rel < 0.02) if quant == "int8" else (kv_abs < 2e-2), f"new K/V B={x.shape[0]}: abs {kv_abs} rel {kv_rel}"
     return e_abs, e_rel
+
+
+def step_cases(w, quant: str, b: int, g: torch.Generator, live: int = LIVE, t_pad: int = T_PAD) -> dict:
+    """The whole step held against its twin (hold_step) on random inputs and
+    on peaked_step_inputs, at a live prefix of `live` slots of t_pad; on the
+    twin, what ignoring the mask would cost in the peaked case (a relative
+    and an absolute shift above 0.2, ten times the bars)."""
+    out = {}
+    for case in ("random", "peaked"):
+        kv, kv_s, mask, x = (step_inputs(quant, b, g, live, t_pad) if case == "random"
+                             else peaked_step_inputs(w, quant, b, g, live, t_pad))
+        e_abs, e_rel = hold_step(w, quant, kv, kv_s, mask, x, live)
+        out[case] = {"max_abs_err": e_abs, "rel_err": e_rel}
+    open_mask = mask.clone()
+    open_mask[:, :live] = 1.0
+    ref, nomask = (ds.fused_decode_step_plain(x, w, kv.clone(), m, live, kv_s.clone() if kv_s is not None else None,
+                                              num_heads=H)[0] for m in (mask, open_mask))
+    out["mask_shift"] = {"max_abs": float((nomask - ref).abs().max()), "rel": rel_err(nomask, ref)}
+    assert out["mask_shift"]["rel"] > 0.2 and out["mask_shift"]["max_abs"] > 0.2, out
+    return out
+
+
+def k1_case(quant: str, b: int, g: torch.Generator) -> dict:
+    """step_cases at full width on S1Config() weights made from seed 0."""
+    torch.manual_seed(0)
+    state = T2SDecoder(S1Config()).state_dict()
+    w = {k: v.to("cuda") for k, v in ds.stack_weights_from_params(state, L, quant=quant).items()}
+    return step_cases(w, quant, b, g)
 
 
 def _cache(kv_f: torch.Tensor, quant: str):
@@ -269,6 +350,8 @@ def kernel_phase(s1_state: dict, quant: str, b: int, seed: int) -> dict:
     g = torch.Generator(device=dev).manual_seed(seed)
     w = ds.stack_weights_from_params(s1_state, L, quant=quant)
     w = {k: v.to(dev) for k, v in w.items()}
+    # the part kernels take (K, N) matrices; the whole step the fragment-ordered K-major stack
+    wkn = {k: ds.from_fragment_order(w[k]).transpose(1, 2).contiguous() for k in ds.MATS}
     kv, kv_s, mask, x = step_inputs(quant, b, g)
     xs = {n: torch.randn((b, k), generator=g, device=dev) for n, k in (("qkv", D), ("wo", D), ("fc1", D), ("fc2", F))}
     qkv = torch.randn((b, 3 * D), generator=g, device=dev) * 0.5
@@ -282,7 +365,7 @@ def kernel_phase(s1_state: dict, quant: str, b: int, seed: int) -> dict:
     # proj -------------------------------------------------------------
     def projs(fn, i):
         li = i % L
-        return [fn(xs[n], w[wname[n]][li], w[bname[n]][li], sc(wname[n], li), relu=(n == "fc1")) for n in xs]
+        return [fn(xs[n], wkn[wname[n]][li], w[bname[n]][li], sc(wname[n], li), relu=(n == "fc1")) for n in xs]
 
     err = e_abs = 0.0
     for li in (0, L - 1):
@@ -298,7 +381,7 @@ def kernel_phase(s1_state: dict, quant: str, b: int, seed: int) -> dict:
     lib = None
     if quant == "bf16":
         xb = {n: v.to(torch.bfloat16) for n, v in xs.items()}
-        lib = timings("library_", lambda i: [torch.matmul(xb[n], w[wname[n]][i % L]) for n in xs], 48)
+        lib = timings("library_", lambda i: [torch.matmul(xb[n], wkn[wname[n]][i % L]) for n in xs], 48)
     rows["proj"] = dict(max_abs_err=e_abs, max_rel_err=err, **timings("", lambda i: projs(ds.proj, i), 48),
                         **timings("plain_", lambda i: projs(ds.proj_plain, i), 12), **(lib or {"library_ms": None}),
                         bytes=nb, ops=ops, kind=kind)
@@ -344,20 +427,28 @@ def kernel_phase(s1_state: dict, quant: str, b: int, seed: int) -> dict:
     )
 
     # the whole step -----------------------------------------------------------
-    e_abs, e_rel = hold_step(w, quant, kv, kv_s, mask, x)
+    held = step_cases(w, quant, b, g)
     kv_t, s_t = kv.clone(), (kv_s.clone() if kv_s is not None else None)
 
     def run_step(fn):
         return lambda i: fn(x, w, kv_t, mask, LIVE, s_t, num_heads=H)
 
     ops = 2 * b * sum(w[k].numel() for k in ("wqkv", "wo", "fc1", "fc2")) + L * 4 * b * H * LIVE * (D // H)
+    # the step's ms: queued CUDA events, since late in this long process the
+    # profiler now and then reads the step short (profiler_ms kept beside it)
+    prof = timings("profiler_", run_step(ds.fused_decode_step), 10)
     rows["fused_decode_step"] = dict(
-        max_abs_err=e_abs, rel_err=e_rel, **timings("", run_step(ds.fused_decode_step), 10),
+        max_abs_err=max(held[c]["max_abs_err"] for c in ("random", "peaked")),
+        rel_err=max(held[c]["rel_err"] for c in ("random", "peaked")), held=held,
+        ms=queued_ms(run_step(ds.fused_decode_step), 20), timer="queued_events", wall_ms=prof["profiler_wall_ms"],
+        profiler_ms=prof["profiler_ms"], profiler_timer=prof["profiler_timer"],
         **timings("plain_", run_step(ds.fused_decode_step_plain), 3), library_ms=None,
         bytes=ds.step_bytes(w, kv, LIVE), ops=ops, kind=kind,
     )
     for r in rows.values():
         r["bound_ms"], r["bound_by"] = bound_ms(r.pop("bytes"), r.pop("ops"), r.pop("kind"))
+    step = rows["fused_decode_step"]
+    assert step["ms"] >= step["bound_ms"], f"the step timed below its bound: {step}"
     if b == 1:
         emit({"phase": "profile", "mode": f"{quant}/{quant}", "B": b, **profile_steps(run_step(ds.fused_decode_step))})
     return rows
@@ -365,14 +456,23 @@ def kernel_phase(s1_state: dict, quant: str, b: int, seed: int) -> dict:
 
 def width_phase(s1_state: dict, seed: int) -> dict:
     """The whole step at every other batch width the path may run (segment
-    batches of 2..7 rows), held against the twin, in both modes."""
+    batches of 2..7 rows), held against the twin on random and peaked
+    inputs (step_cases), in both modes; and at B = 2 on the longest live
+    prefix the kernel takes (all STEP_MAX_SPLITS attention splits of a
+    (row, head): 8192 slots with bf16 KV, 16384 with int8)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     out = {}
     for quant in ("bf16", "int8"):
         w = {k: v.to(dev) for k, v in ds.stack_weights_from_params(s1_state, L, quant=quant).items()}
-        errs = [hold_step(w, quant, *step_inputs(quant, b, g)) for b in range(2, ds.MAX_ROWS)]
-        out[f"{quant}/{quant}"] = {"max_abs_err": max(e for e, _ in errs), "max_rel_err": max(r for _, r in errs)}
+        cases = [step_cases(w, quant, b, g) for b in range(2, ds.MAX_ROWS)]
+        errs = [c[case] for c in cases for case in ("random", "peaked")]
+        out[f"{quant}/{quant}"] = {"max_abs_err": max(e["max_abs_err"] for e in errs),
+                                   "max_rel_err": max(e["rel_err"] for e in errs)}
+        reach = ds.STEP_MAX_SPLITS * 32 * (4 if quant == "int8" else 2)
+        assert ds.step_splits(reach, quant == "int8")[1] == ds.STEP_MAX_SPLITS
+        out[f"{quant}/{quant} live {reach}"] = step_cases(w, quant, 2, g, live=reach, t_pad=reach + 64)
+        torch.cuda.empty_cache()
     return out
 
 
@@ -427,8 +527,38 @@ REQUESTS = [
 ]
 
 
+class counted_steps:
+    """Within the block, calls of ds.fused_decode_step (models/t2s.py
+    generate makes one a decode step) are counted in `n`."""
+
+    def __enter__(self):
+        self.n, self.saved = 0, ds.fused_decode_step
+
+        def step(*args, **kw):
+            self.n += 1
+            return self.saved(*args, **kw)
+
+        ds.fused_decode_step = step
+        return self
+
+    def __exit__(self, *exc):
+        ds.fused_decode_step = self.saved
+
+
+S1_PARTS = ("proj", "decode_attn", "add_layernorm")
+
+
+def check_s1_launches(launches: dict, steps: int) -> dict:
+    """One whole-step launch for every S1 step of a path, and no launch of
+    K1's part kernels."""
+    assert steps > 0 and launches["fused_decode_step"] == steps, (launches, steps)
+    assert all(launches[k] == 0 for k in S1_PARTS), launches
+    return {"s1_steps": steps}
+
+
 def path_phase(pipe, seed: int) -> dict:
-    """The v2ProPlus requests; returns K1's launch counts over them."""
+    """The v2ProPlus requests; returns K1's launch counts over them, and the
+    S1 steps they made."""
     t0 = time.perf_counter()
     pipe.set_ref_audio(reference_wav(seed), sr=32000)
     torch.cuda.synchronize()
@@ -437,10 +567,13 @@ def path_phase(pipe, seed: int) -> dict:
     hop_up = int(np.prod(pipe.s2.cfg.upsample_rates))
     sr = pipe.mel_cfg.sampling_rate
     out = []
+    n_steps = 0
     reset_all_launch_counts()
     for i, text in enumerate(REQUESTS):
         t0 = time.perf_counter()
-        sr_out, audio = pipe.run(text, "en", seed=seed + i, max_sec=MAX_SEC)
+        with counted_steps() as steps:
+            sr_out, audio = pipe.run(text, "en", seed=seed + i, max_sec=MAX_SEC)
+        n_steps += steps.n
         wall = time.perf_counter() - t0
         assert sr_out == sr and audio.dtype == np.int16, (sr_out, audio.dtype)
         n_seg = len(pipe.last_tokens)
@@ -453,7 +586,7 @@ def path_phase(pipe, seed: int) -> dict:
         emit(rec)
         out.append(rec)
     assert any(r["segments"] > 1 for r in out), "no request ran a batch of several segments"
-    return ds.launch_counts()
+    return {**ds.launch_counts(), "s1_steps": n_steps}
 
 
 def teacher_phase(pipe, steps: int = 96) -> float:
@@ -583,6 +716,48 @@ def gemm_case(b: int, t: int, g: torch.Generator) -> dict:
     return hold_k2(calls, res, t - 40)
 
 
+def k3_call(b: int, t: int, g: torch.Generator, q_scale: float = 1.0):
+    """K3's inputs at v4 widths (dim 1024, 16 x 64 heads), B rows of T
+    frames, with the AdaLN prologue: call(fn) -> (q, k, v), and the three
+    (codes, scales, biases) weights."""
+    dev = torch.device("cuda")
+    d = V4_DIM
+    x = torch.randn((b, t, d), generator=g, device=dev).to(torch.bfloat16)
+    sc, sh = ((0.3 * torch.randn((b, d), generator=g, device=dev)).contiguous() for _ in range(2))
+    wqkv = [_qweight(d, d, g) for _ in range(3)]
+
+    def call(fn):
+        return fn(x, *(w[0] for w in wqkv), *(w[1] for w in wqkv), *(w[2] for w in wqkv), ln_mod=(sc, sh),
+                  dim_head=V4_DH, q_scale=q_scale)
+
+    return call, wqkv
+
+
+def k3_hold(call, t: int) -> dict:
+    """K3 held against its twin, each output within 2% of its max; on the
+    twin, what a rotation fault would cost at positions 0..T-1 (head 0 of q
+    unrotated against rotated)."""
+    from gpt_sovits_tpu_torch.ops import qmatmul as qm
+
+    got, ref = call(qm.qkv_rope_int8), call(qm.qkv_rope_int8_plain)
+    held = {nm: _held(f"qkv_rope_int8 {nm}", a, r) for nm, a, r in zip("qkv", got, ref)}
+    cos, sin = qm.rope_table(t, V4_DH, ref[0].device)
+    q0 = ref[0][:, 0].float()
+    unrot = torch.stack([q0[..., 0::2] * cos + q0[..., 1::2] * sin, q0[..., 1::2] * cos - q0[..., 0::2] * sin], -1)
+    held["rotation_shift"] = float((unrot.reshape(q0.shape) - q0).abs().max())
+    assert held["rotation_shift"] > 10 * V4_BAR * held["q"]["out_max"], held
+    return held
+
+
+def k3_case(b: int, t: int, q_scale: float, g: torch.Generator) -> dict:
+    """K3 at v4 widths, B rows of T frames (B x T need not be a multiple of
+    the GEMM's 128-row tiles), with a static q scale: k3_hold. A copy that
+    rotates no head or every head, reads the rotary table off by one
+    position, drops q_scale (q_scale != 1) or writes v from k's weights
+    fails it."""
+    return k3_hold(k3_call(b, t, g, q_scale)[0], t)
+
+
 def bf16_step(x: float) -> float:
     """The spacing of bf16 values at |x|."""
     return 2.0 ** (np.floor(np.log2(abs(x))) - 7) if x else 0.0
@@ -641,15 +816,15 @@ def v4_kernel_phase(b: int, seed: int) -> dict:
     heads, ff 2048, T 1024 with 1000 real frames), B rows; each held against
     its twin on the card, on inputs where a fault shows (k2_block,
     k5_inputs; K3 runs positions 0..1023, where rotating every head, or
-    none, moves the output by about its size). K5 is also held at T = 1000
-    (a partial last key tile) and T = 2048 (MAX_INT8_T)."""
+    none, moves the output by about its size, and is also held with a q
+    scale and at T = 1000, a ragged M). K5 is also held at T = 1000 (a
+    partial last key tile) and T = 2048 (MAX_INT8_T)."""
     from gpt_sovits_tpu_torch.ops import qflash as qf
     from gpt_sovits_tpu_torch.ops import qmatmul as qm
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 10)
     m, t, d = b * V4_T, V4_T, V4_DIM
-    bf = torch.bfloat16
     rows = {}
 
     # K2: the attention output (mask + gated residual), ff1 (AdaLN + gelu), ff2 (gated residual)
@@ -669,27 +844,17 @@ def v4_kernel_phase(b: int, seed: int) -> dict:
         **timings("library_", lambda i: [torch._int_mm(a, w.t()) for a, w in lib_in], 20),
         bound_ms=bound, bound_by=by, config=f"B={b}: to_out + ff1 + ff2 of one DiT block (3 launches)")
 
-    # K3: q, k, v with the AdaLN prologue and rotary on head 0
-    xq3 = torch.randn((b, t, d), generator=g, device=dev).to(bf)
-    sc, sh = ((0.3 * torch.randn((b, d), generator=g, device=dev)).contiguous() for _ in range(2))
-    wqkv = [_qweight(d, d, g) for _ in range(3)]
-
-    def qkv(fn):
-        return fn(xq3, *(w[0] for w in wqkv), *(w[1] for w in wqkv), *(w[2] for w in wqkv), ln_mod=(sc, sh),
-                  dim_head=V4_DH)
-
-    got, ref = qkv(qm.qkv_rope_int8), qkv(qm.qkv_rope_int8_plain)
-    held = {nm: _held(f"qkv_rope_int8 {nm}", a, r) for nm, a, r in zip("qkv", got, ref)}
-    # what a rotation fault would cost at these positions: head 0 unrotated vs rotated
-    cos, sin = qm.rope_table(t, V4_DH, dev)
-    q0 = ref[0][:, 0].float()
-    unrot = torch.stack([q0[..., 0::2] * cos + q0[..., 1::2] * sin, q0[..., 1::2] * cos - q0[..., 0::2] * sin], -1)
-    held["rotation_shift"] = float((unrot.reshape(q0.shape) - q0).abs().max())
-    assert held["rotation_shift"] > 10 * V4_BAR * held["q"]["out_max"], held
+    # K3: q, k, v with the AdaLN prologue and rotary on head 0; the DiT's
+    # call, then with a q scale, then at a ragged M (T = 1000)
+    qkv, wqkv = k3_call(b, t, g)
+    held = k3_hold(qkv, t)
+    held["q_scale=0.125"] = k3_case(b, t, 0.125, g)
+    held["T=1000"] = k3_case(b, 1000, 1.0, g)
     xq_lib = torch.randint(-127, 128, (m, d), generator=g, device=dev, dtype=torch.int8)
     bound, by = bound_ms(m * d * 2 + 3 * (d * d + 8 * d) + 3 * m * d * 2 + 2 * b * d * 4, 3 * 2 * m * d * d, "int8")
     rows["qkv_rope_int8"] = dict(
-        max_abs_err=max(h["max_abs_err"] for h in held.values() if isinstance(h, dict)), held=held,
+        max_abs_err=max(h["max_abs_err"] for hh in (held, held["q_scale=0.125"], held["T=1000"])
+                        for h in hh.values() if isinstance(h, dict) and "max_abs_err" in h), held=held,
         **timings("", lambda i: qkv(qm.qkv_rope_int8), 20, split=True),
         **timings("plain_", lambda i: qkv(qm.qkv_rope_int8_plain), 3),
         **timings("library_", lambda i: [torch._int_mm(xq_lib, w[0].t()) for w in wqkv], 20),
@@ -744,6 +909,19 @@ def gemm_tile_phase(seed: int) -> dict:
                 row.setdefault(f"ms_{tn}", []).append(device_ms(run, 50)[0])
             assert all(torch.equal(ys[0], y) for y in ys), f"qdense tile widths disagree at {name} B={b}"
             out[f"{name} B={b}"] = row
+        # K3's GEMM: three projections in one grid
+        m, k, n = b * V4_T, V4_DIM, V4_DIM
+        xq = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+        sx = torch.rand(m, generator=g, device=dev) + 0.5
+        ws = [_qweight(n, k, g) for _ in range(3)]
+        row = {"M": m, "K": k, "N": n, "z": 3, "plan": qm.gemm_plan(m, n, 3)[0]}
+        ys = []
+        for tn in (*qm.GEMM_TILES_N, *qm.GEMM_TILES_N):
+            run = lambda i, tn=tn: qm._qkv_gemm(xq, sx, *zip(*ws), b, V4_T, V4_DH, 1.0, tile_n=tn)  # noqa: E731
+            ys.append(run(0))
+            row.setdefault(f"ms_{tn}", []).append(device_ms(run, 50)[0])
+        assert all(all(torch.equal(a, c) for a, c in zip(ys[0], y)) for y in ys), f"qkv_rope tile widths disagree B={b}"
+        out[f"qkv_rope B={b}"] = row
     return out
 
 
@@ -1139,6 +1317,7 @@ def snake_in_call(pipe, seed: int, steps: int = 2) -> dict:
     K6's launches. The bound counts the bytes and operations of the snake
     inputs this call made, recorded by a forward pre-hook."""
     from gpt_sovits_tpu_torch.models.bigvgan import AntiAliasedSnake
+    from gpt_sovits_tpu_torch.ops import snake_aa as sa
 
     mel = _v3_mel(pipe, seed)
     seen = []
@@ -1156,19 +1335,29 @@ def snake_in_call(pipe, seed: int, steps: int = 2) -> dict:
     def call(_=0):
         return pipe._voc(mel)
 
+    def snake_launches(evs):
+        return sum(ev.count for ev in evs if "snake_aa_kernel" in ev.key) / steps
+
     with torch.no_grad():
         call()
         torch.cuda.synchronize()
-        evs, wall = device_events(call, steps), cuda_ms(call, steps)
+        sa.reset_launch_counts()
+        call()
+        counted = sa.launch_counts()["snake_aa"]
+        # a window in which the profiler dropped one of K6's launches would
+        # read its time short: such a window is taken again
+        evs = device_events(call, steps, attempts=6, complete=lambda e: snake_launches(e) == SNAKE_PER_CALL)
+        wall = cuda_ms(call, steps)
         with twins_in_bigvgan():
             call()
             torch.cuda.synchronize()
             evs_t, wall_t = device_events(call, steps), cuda_ms(call, steps)
-    assert evs and evs_t, "the profiler saw no device time in the BigVGAN call"
+    assert counted == SNAKE_PER_CALL, f"K6 launched {counted} times in one BigVGAN call"
+    assert evs, f"the profiler saw no whole window of the BigVGAN call's {SNAKE_PER_CALL} K6 launches"
+    assert evs_t, "the profiler saw no device time in the twins' BigVGAN call"
     snake = [ev for ev in evs if "snake_aa_kernel" in ev.key]
     assert not any("snake_aa_kernel" in ev.key for ev in evs_t), "K6 launched in the twins' call"
-    launches = sum(ev.count for ev in snake) / steps
-    assert launches == SNAKE_PER_CALL, launches
+    launches = snake_launches(evs)
     ms = sum(ev.self_device_time_total for ev in snake) / 1e3 / steps
     busy = sum(ev.self_device_time_total for ev in evs) / 1e3 / steps
     busy_t = sum(ev.self_device_time_total for ev in evs_t) / 1e3 / steps
@@ -1230,10 +1419,10 @@ def stream_v2_phase(pipe, seed: int) -> dict:
 
 
 def kernel_times(seed: int) -> dict:
-    """Device ms of K2 (one DiT block's three calls), K4 and K5 at the main
-    path's shapes, B = 1 and 4, with body_ms and helper_ms. Only the
-    wrappers' public functions are called, so the same code times another
-    tree's kernels (compare_trees)."""
+    """Device ms of K2 (one DiT block's three calls), K4, K5 and K3 at the
+    main path's shapes, B = 1 and 4, with body_ms and helper_ms, and of K1's
+    step at B = 1 in int8 and bf16. Only the wrappers' public functions are
+    called, so the same code times another tree's kernels (compare_trees)."""
     from gpt_sovits_tpu_torch.ops import qflash as qf
     from gpt_sovits_tpu_torch.ops import qmatmul as qm
 
@@ -1250,7 +1439,20 @@ def kernel_times(seed: int) -> dict:
         q, k, v = cases["random"]
         out[f"flash_attn_int8 B={b}"] = timings("", lambda i: qf.flash_attn_int8(q, k, v, mask, sm_scale=sm), 20,
                                                 split=True)
-        del calls, call, mask, cases, q, k, v
+        k3 = k3_call(b, V4_T, g)[0]
+        out[f"qkv_rope_int8 B={b}"] = timings("", lambda i: k3(qm.qkv_rope_int8), 20, split=True)
+        del calls, call, mask, cases, q, k, v, k3
+        torch.cuda.empty_cache()
+    # K1: one step at B = 1, int8 weights and KV, then bf16 (the function's
+    # device time: every kernel the step launches)
+    torch.manual_seed(seed)
+    state = T2SDecoder(S1Config()).state_dict()
+    for quant in ("int8", "bf16"):
+        w = {k_: v_.to("cuda") for k_, v_ in ds.stack_weights_from_params(state, L, quant=quant).items()}
+        kv_, kv_s, mask_, x = step_inputs(quant, 1, g)
+        step = lambda i: ds.fused_decode_step(x, w, kv_, mask_, LIVE, kv_s, num_heads=H)  # noqa: E731
+        out[f"fused_decode_step {quant} B=1"] = {**timings("", step, 10), "queued_ms": queued_ms(step, 20)}
+        del w, kv_, kv_s
         torch.cuda.empty_cache()
     return out
 
@@ -1279,7 +1481,7 @@ def compare_trees(parent: str, seed: int) -> dict:
         mine = [r["times"] for r in runs if r["tree"] == name]
         mean[name] = {key: {f: (None if any(t[key].get(f) is None for t in mine)
                                 else sum(t[key][f] for t in mine) / len(mine))
-                            for f in ("ms", "body_ms", "helper_ms")} for key in mine[0]}
+                            for f in ("ms", "body_ms", "helper_ms", "wall_ms", "queued_ms")} for key in mine[0]}
     return {"parent_dir": str(trees["parent"]), "runs": runs, "mean": mean}
 
 
@@ -1287,7 +1489,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent", default=None,
-                    help="also time K2, K4 and K5 on the kernels of an earlier tree unpacked here, in turns with this "
+                    help="also time K1-K5 on the kernels of an earlier tree unpacked here, in turns with this "
                          "tree's (compare_trees)")
     args = ap.parse_args(argv)
 
@@ -1317,7 +1519,7 @@ def main(argv=None) -> int:
 
     pipe = build_pipeline(args.seed)
     launches = path_phase(pipe, args.seed)  # counted from 0 just before the path's requests
-    assert all(n > 0 for n in launches.values()), launches
+    check_s1_launches(launches, launches["s1_steps"])
     agree = teacher_phase(pipe)
     emit({"phase": "teacher", "greedy_agreement": agree})
     assert agree >= 0.9, agree
@@ -1335,12 +1537,13 @@ def main(argv=None) -> int:
             v4_rows[(name, b)] = r
     pipe4 = build_v4_pipeline(args.seed)
     reset_all_launch_counts()
-    reqs = path_v4_phase(pipe4, args.seed)
+    with counted_steps() as steps4:
+        reqs = path_v4_phase(pipe4, args.seed)
     launches4 = all_launch_counts()  # counted from 0 just before the v4 requests
     n_cfm = sum(len(r["cfm_batch"]) for r in reqs)
     for name, per_call in V4_PER_CFM_CALL.items():
         assert launches4[name] == per_call * n_cfm, (name, launches4[name], per_call, n_cfm)
-    assert launches4["fused_decode_step"] > 0, launches4
+    launches4.update(check_s1_launches(launches4, steps4.n))
     emit({"phase": "path_v4", "launches": launches4, "cfm_calls": n_cfm,
           "max_memory_GB": torch.cuda.max_memory_allocated() / 1e9})
     emit({"phase": "cfm_teacher", **cfm_teacher_phase(pipe4, args.seed)})
@@ -1351,12 +1554,13 @@ def main(argv=None) -> int:
     v3_rows = v3_kernel_phase(args.seed)
     pipe3 = build_v3_pipeline(args.seed)
     reset_all_launch_counts()
-    calls = path_v3_phase(pipe3, args.seed)
+    with counted_steps() as steps3:
+        calls = path_v3_phase(pipe3, args.seed)
     launches3 = all_launch_counts()  # counted from 0 just before the v3 requests
     for name, per_call in V3_PER_CFM_CALL.items():
         assert launches3[name] == per_call * calls["cfm"], (name, launches3[name], per_call, calls)
     assert launches3["snake_aa"] == SNAKE_PER_CALL * calls["vocoder"], (launches3["snake_aa"], calls)
-    assert launches3["fused_decode_step"] > 0, launches3
+    launches3.update(check_s1_launches(launches3, steps3.n))
     emit({"phase": "path_v3", "launches": launches3, "cfm_calls": calls["cfm"], "vocoder_calls": calls["vocoder"],
           "max_memory_GB": torch.cuda.max_memory_allocated() / 1e9})
     emit({"phase": "v3_profile", **v3_layer_profiles(pipe3, args.seed)})
@@ -1375,11 +1579,12 @@ def main(argv=None) -> int:
     for name, r in main_rows.items():
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SRC, "replaces": REPLACES,
-            "launches": launches[name],
+            "launches": launches[name], "launches_v4": launches4[name], "launches_v3": launches3[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "timer": r["timer"],
-            "config": "int8 weights + int8 KV, B=1, live 745 of 1024; proj/add_layernorm/decode_attn per layer, "
-                      "fused_decode_step per 24-layer step",
+            "config": "int8 weights + int8 KV, B=1, live 745 of 1024; fused_decode_step (one launch a step, the "
+                      "S1 path's only K1 kernel) per 24-layer step; proj/add_layernorm/decode_attn, the parts "
+                      "held on their own, per layer; launches over the v2 (launches), v4 and v3 paths",
         })
     lib_bf16 = table[("bf16", 1)]
     for k in kernels:  # K1's parts: the bf16 mode's library call (torch.matmul, SDPA, layer_norm) at B=1

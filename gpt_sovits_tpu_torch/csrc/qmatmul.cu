@@ -34,18 +34,19 @@
 // batches. So the floor is the int8 tensor-core rate for B >= 4 and the
 // bytes below.
 //
-// What the design does about it. K2's and K4's GEMM (qdense_wgmma_kernel)
-// is Hopper's: a producer warp keeps TMA loads of 128-byte-deep K
-// slices in flight through a 3-4 slot ring (128-byte swizzle, mbarriers),
-// and two consumer warpgroups run wgmma m64nNk32 s8 straight from shared
-// memory, so no thread spends instructions on operand loads; the epilogue
+// What the design does about it. One GEMM serves all three
+// (gemm_tile_staged), and it is Hopper's: a producer warp keeps TMA loads of
+// 128-byte-deep K slices in flight through a 3-4 slot ring (128-byte
+// swizzle, mbarriers), and two consumer warpgroups run wgmma m64nNk32 s8
+// straight from shared memory, so no thread spends instructions on operand
+// loads; the s32 tile is staged through the idle ring, and the epilogue
 // moves res and out in 16-byte accesses. Tiles are 128 x 64 (or 128 x 128
-// where the grid is large), so M = 1024, N = 1024 launches 128 blocks on
-// the 132 SMs, where 128 x 128 tiles would launch 64; two
-// blocks fit an SM. K3 keeps the port's first GEMM: a plain mma.sync
-// m16n8k32 s8 GEMM (128 x 128 x 64 block tiles, 8 warps of 64 x 32,
-// cp.async double buffering). PERF.md records how far each launch is from
-// its bound.
+// where the grid is large: ops/qmatmul.py gemm_plan, which counts K3's three
+// projections in its grid), so M = 1024, N = 1024 launches 128 blocks on
+// the 132 SMs, where 128 x 128 tiles would launch 64; two blocks fit an SM.
+// K3 launches one grid over (column tile, row block, projection): blockIdx.z
+// picks q, k or v through its own weight tensor map. PERF.md records how far
+// each launch is from its bound.
 //
 // Numerics follow the TPU kernels: activations are multiplied by the
 // exactly rounded reciprocal of their scale and rounded half to even
@@ -191,106 +192,6 @@ __global__ void __launch_bounds__(RQ_THREADS) row_quant_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// The s8 GEMM main loop: acc[128 x 128 tile] = xq[m0.., :] . W[n0.., :]^T
-// ---------------------------------------------------------------------------
-
-constexpr int BM = 128, BN = 128, BK = 64;
-constexpr int LDS = BK + 16;  // bytes per shared row: 80, so fragment loads hit 32 banks
-constexpr int GEMM_THREADS = 256;
-
-struct GemmSmem {
-    int8_t a[2][BM][LDS];
-    int8_t b[2][BN][LDS];
-};
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-    const int n = pred ? 16 : 0;  // 0: fill the 16 bytes with zeros, read nothing
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_s8(int* c, const unsigned* a, const unsigned* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-        "{%0,%1,%2,%3};\n"
-        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ unsigned lds32(const int8_t* p) { return *reinterpret_cast<const unsigned*>(p); }
-
-// Each warp owns a 64 x 32 piece of the tile: rows wm + mi*16 + {g, g+8},
-// columns wn + ni*8 + {2t, 2t+1} of acc[mi][ni][{0,1 | 2,3}].
-__device__ __forceinline__ void gemm_tile(const int8_t* __restrict__ xq, const int8_t* __restrict__ w, int M, int K,
-                                          int m0, int n0, GemmSmem& sm, int (&acc)[4][4][4]) {
-    const int tid = threadIdx.x;
-    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-    const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-            for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0;
-
-    auto load = [&](int stage, int k0) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            const int c = tid + i * GEMM_THREADS;  // 512 16-byte chunks per operand tile
-            const int r = c >> 2, col = (c & 3) * 16;
-            const int gm = m0 + r;
-            const bool ok = gm < M;
-            cp_async16(&sm.a[stage][r][col], xq + (long long)(ok ? gm : 0) * K + k0 + col, ok);
-            cp_async16(&sm.b[stage][r][col], w + (long long)(n0 + r) * K + k0 + col, true);
-        }
-        cp_async_commit();
-    };
-
-    const int nk = K / BK;
-    load(0, 0);
-    for (int kt = 0; kt < nk; ++kt) {
-        if (kt + 1 < nk) {
-            load((kt + 1) & 1, (kt + 1) * BK);
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();
-        const int st = kt & 1;
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 32) {
-            unsigned a[4][4], b[4][2];
-#pragma unroll
-            for (int mi = 0; mi < 4; ++mi) {
-                const int r = wm + mi * 16 + g;
-                a[mi][0] = lds32(&sm.a[st][r][kk + t * 4]);
-                a[mi][1] = lds32(&sm.a[st][r + 8][kk + t * 4]);
-                a[mi][2] = lds32(&sm.a[st][r][kk + 16 + t * 4]);
-                a[mi][3] = lds32(&sm.a[st][r + 8][kk + 16 + t * 4]);
-            }
-#pragma unroll
-            for (int ni = 0; ni < 4; ++ni) {
-                const int n = wn + ni * 8 + g;
-                b[ni][0] = lds32(&sm.b[st][n][kk + t * 4]);
-                b[ni][1] = lds32(&sm.b[st][n][kk + 16 + t * 4]);
-            }
-#pragma unroll
-            for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-                for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni]);
-        }
-        __syncthreads();  // the next iteration's load overwrites this stage
-    }
-}
-
-// ---------------------------------------------------------------------------
 // Hopper building blocks: mbarriers, TMA tile loads, wgmma
 // ---------------------------------------------------------------------------
 
@@ -408,17 +309,18 @@ __device__ __forceinline__ float gelu_tanh(float y) {
 }
 
 // ---------------------------------------------------------------------------
-// qdense (K2, and K4's GEMM): out (M, N) bf16 = epilogue(acc * sx[row] * sw[col] + b[col])
+// The s8 GEMM of one 128 x BN output tile, shared by qdense (K2, K4's GEMM)
+// and qkv_rope (K3): acc = xq[m0.., :] . W[n0.., :]^T.
 //
-// One block per 128 x BN output tile. Warp 8 is the producer: one thread
-// streams 128-byte-deep K slices of x (128 rows) and W (BN rows) by TMA
-// into a ring of STAGES slots, each with a `full` barrier (the TMA bytes)
-// and an `empty` barrier (every consumer thread's release). Warpgroups 0
-// and 1 each own 64 rows of the tile and run wgmma m64nBNk32 s8 from the
-// slots as they arrive. Rows past M and K past its end load as zeros. The
-// epilogue stages the s32 tile through the (then idle) ring, and each
-// thread finishes 8 consecutive columns of a row: 16-byte loads of res and
-// stores of out, sw and bias from shared memory, loaded once per tile.
+// Warp 8 is the producer: one thread streams 128-byte-deep K slices of x
+// (128 rows) and W (BN rows) by TMA into a ring of STAGES slots, each with a
+// `full` barrier (the TMA bytes) and an `empty` barrier (every consumer
+// thread's release). Warpgroups 0 and 1 each own 64 rows of the tile and
+// run wgmma m64nBNk32 s8 from the slots as they arrive. Rows past M and K
+// past its end load as zeros. The s32 tile is then staged through the (by
+// then idle) ring, so that each epilogue thread finishes 8 consecutive
+// columns of a row with 16-byte accesses; sw and bias of the tile's columns
+// sit in shared memory, loaded once per tile.
 // ---------------------------------------------------------------------------
 
 constexpr int GEMM_CONSUMERS = 256;                 // two warpgroups
@@ -436,48 +338,66 @@ struct GemmCfg {
     static_assert(BM * EPI_LD * 4 <= RING, "the epilogue's staging fits in the ring");
 };
 
+// The GEMM's dynamic shared memory from a 1024-byte aligned base: the ring
+// (A slots, then B slots), the tile's sw and bias, the full and empty barriers.
 template <int BN>
-__global__ void __launch_bounds__(GEMM_THREADS_HOPPER, 2) qdense_wgmma_kernel(
-    const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w, const float* __restrict__ sx,
-    const float* __restrict__ sw, const float* __restrict__ bias, const __nv_bfloat16* __restrict__ res,
-    const float* __restrict__ gate, const float* __restrict__ mask, __nv_bfloat16* __restrict__ out, int M, int N,
-    int K, int T, int gelu) {
+struct GemmRing {
     using C = GemmCfg<BN>;
-    extern __shared__ __align__(1024) uint8_t dyn_smem[];
-    uint8_t* smem = dyn_smem + ((1024 - (smem_u32(dyn_smem) & 1023)) & 1023);
-    uint8_t* sa = smem;
-    uint8_t* sb = smem + C::STAGES * C::A_BYTES;
-    float* s_sw = reinterpret_cast<float*>(smem + C::RING);
-    float* s_bias = s_sw + BN;
-    uint64_t* full = reinterpret_cast<uint64_t*>(s_bias + BN);
-    uint64_t* empty = full + C::STAGES;
-    const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * BN;
-    const int nk = (K + C::BK - 1) / C::BK;
+    uint8_t* base;
+    float* s_sw;
+    float* s_bias;
+    uint64_t* full;
+    uint64_t* empty;
+    __device__ explicit GemmRing(uint8_t* dyn)
+        : base(dyn + ((1024 - (smem_u32(dyn) & 1023)) & 1023)),
+          s_sw(reinterpret_cast<float*>(base + C::RING)),
+          s_bias(s_sw + BN),
+          full(reinterpret_cast<uint64_t*>(s_bias + BN)),
+          empty(full + C::STAGES) {}
+    __device__ uint8_t* a(int s) const { return base + s * C::A_BYTES; }
+    __device__ uint8_t* b(int s) const { return base + C::STAGES * C::A_BYTES + s * C::B_BYTES; }
+    __device__ const int* staged() const { return reinterpret_cast<const int*>(base); }
+};
+
+// Every thread of the block: the barriers, and the tile's sw and bias.
+template <int BN>
+__device__ __forceinline__ void gemm_setup(const GemmRing<BN>& ring, const float* __restrict__ sw,
+                                           const float* __restrict__ bias, int n0) {
     const int tid = threadIdx.x;
     if (tid == 0) {
-        for (int s = 0; s < C::STAGES; ++s) {
-            mbar_init(&full[s], 1);
-            mbar_init(&empty[s], GEMM_CONSUMERS);
+        for (int s = 0; s < GemmCfg<BN>::STAGES; ++s) {
+            mbar_init(&ring.full[s], 1);
+            mbar_init(&ring.empty[s], GEMM_CONSUMERS);
         }
         fence_barrier_init();
     }
     if (tid < BN) {
-        s_sw[tid] = sw[n0 + tid];
-        s_bias[tid] = bias[n0 + tid];
+        ring.s_sw[tid] = sw[n0 + tid];
+        ring.s_bias[tid] = bias[n0 + tid];
     }
     __syncthreads();
+}
 
+// The producer warp streams the tile's K slices and returns false; the
+// consumer threads return true once the s32 tile is staged in the ring
+// (row r, column c at staged()[r * EPI_LD + c]).
+template <int BN>
+__device__ __forceinline__ bool gemm_tile_staged(const CUtensorMap* tm_x, const CUtensorMap* tm_w,
+                                                 const GemmRing<BN>& ring, int m0, int n0, int K) {
+    using C = GemmCfg<BN>;
+    const int nk = (K + C::BK - 1) / C::BK;
+    const int tid = threadIdx.x;
     if (tid >= GEMM_CONSUMERS) {  // the producer warp
         if (tid == GEMM_CONSUMERS) {
             for (int kt = 0; kt < nk; ++kt) {
                 const int s = kt % C::STAGES;
-                mbar_wait(&empty[s], ((kt / C::STAGES) & 1) ^ 1);
-                mbar_expect_tx(&full[s], C::STAGE_BYTES);
-                tma_load_2d(sa + s * C::A_BYTES, &tm_x, kt * C::BK, m0, &full[s]);
-                tma_load_2d(sb + s * C::B_BYTES, &tm_w, kt * C::BK, n0, &full[s]);
+                mbar_wait(&ring.empty[s], ((kt / C::STAGES) & 1) ^ 1);
+                mbar_expect_tx(&ring.full[s], C::STAGE_BYTES);
+                tma_load_2d(ring.a(s), tm_x, kt * C::BK, m0, &ring.full[s]);
+                tma_load_2d(ring.b(s), tm_w, kt * C::BK, n0, &ring.full[s]);
             }
         }
-        return;
+        return false;
     }
 
     const int wg = tid >> 7;
@@ -487,9 +407,9 @@ __global__ void __launch_bounds__(GEMM_THREADS_HOPPER, 2) qdense_wgmma_kernel(
 #pragma unroll 1
     for (int kt = 0; kt < nk; ++kt) {
         const int s = kt % C::STAGES;
-        mbar_wait(&full[s], (kt / C::STAGES) & 1);
-        const uint8_t* a = sa + s * C::A_BYTES + wg * 64 * C::BK;
-        const uint8_t* b = sb + s * C::B_BYTES;
+        mbar_wait(&ring.full[s], (kt / C::STAGES) & 1);
+        const uint8_t* a = ring.a(s) + wg * 64 * C::BK;
+        const uint8_t* b = ring.b(s);
         reg_fence(acc);
         wg_fence();
 #pragma unroll
@@ -497,12 +417,12 @@ __global__ void __launch_bounds__(GEMM_THREADS_HOPPER, 2) qdense_wgmma_kernel(
         wg_commit();
         wg_wait0();
         reg_fence(acc);
-        mbar_arrive(&empty[s]);
+        mbar_arrive(&ring.empty[s]);
     }
 
-    // epilogue: every slot has been consumed, so the ring holds the s32 tile
+    // every slot has been consumed, so the ring holds the s32 tile
     named_sync(1, GEMM_CONSUMERS);
-    int* stage = reinterpret_cast<int*>(smem);
+    int* stage = reinterpret_cast<int*>(ring.base);
     {
         const int warp = (tid & 127) >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
         const int r = wg * 64 + warp * 16 + g;
@@ -514,20 +434,58 @@ __global__ void __launch_bounds__(GEMM_THREADS_HOPPER, 2) qdense_wgmma_kernel(
         }
     }
     named_sync(1, GEMM_CONSUMERS);
+    return true;
+}
+
+// the 8 staged s32 sums of row r from column c8, as acc * sx * sw + bias (f32)
+template <int BN>
+__device__ __forceinline__ void staged_row8(const GemmRing<BN>& ring, int r, int c8, float sxr, float (&y)[8]) {
+    const int* st = ring.staged() + r * GemmCfg<BN>::EPI_LD + c8;
+    const int4 a0 = *reinterpret_cast<const int4*>(st);
+    const int4 a1 = *reinterpret_cast<const int4*>(st + 4);
+    const int av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) y[e] = (float)av[e] * sxr * ring.s_sw[c8 + e] + ring.s_bias[c8 + e];
+}
+
+__device__ __forceinline__ void store_bf16x8(__nv_bfloat16* dst, const float (&y)[8]) {
+    uint4 packed;
+    __nv_bfloat162* pp = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pp[e] = __floats2bfloat162_rn(y[2 * e], y[2 * e + 1]);
+    *reinterpret_cast<uint4*>(dst) = packed;
+}
+
+// ---------------------------------------------------------------------------
+// qdense (K2, and K4's GEMM): out (M, N) bf16 = epilogue(acc * sx[row] * sw[col] + b[col])
+// One block per 128 x BN output tile; the epilogue adds gelu, the pad-row
+// mask and the gated residual (16-byte loads of res).
+// ---------------------------------------------------------------------------
+
+template <int BN>
+__global__ void __launch_bounds__(GEMM_THREADS_HOPPER, 2) qdense_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w, const float* __restrict__ sx,
+    const float* __restrict__ sw, const float* __restrict__ bias, const __nv_bfloat16* __restrict__ res,
+    const float* __restrict__ gate, const float* __restrict__ mask, __nv_bfloat16* __restrict__ out, int M, int N,
+    int K, int T, int gelu) {
+    using C = GemmCfg<BN>;
+    extern __shared__ __align__(1024) uint8_t dyn_smem[];
+    const GemmRing<BN> ring(dyn_smem);
+    const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * BN;
+    gemm_setup<BN>(ring, sw, bias, n0);
+    if (!gemm_tile_staged<BN>(&tm_x, &tm_w, ring, m0, n0, K)) return;
+
     constexpr int GROUPS = BN / 8;
-    for (int idx = tid; idx < C::BM * GROUPS; idx += GEMM_CONSUMERS) {
+    for (int idx = threadIdx.x; idx < C::BM * GROUPS; idx += GEMM_CONSUMERS) {
         const int r = idx / GROUPS, c8 = (idx % GROUPS) * 8;
         const int row = m0 + r;
         if (row >= M) break;
-        const float sxr = sx[row];
         const bool keep = mask == nullptr || mask[row] > 0.f;
-        const int4 a0 = *reinterpret_cast<const int4*>(&stage[r * C::EPI_LD + c8]);
-        const int4 a1 = *reinterpret_cast<const int4*>(&stage[r * C::EPI_LD + c8 + 4]);
-        const int av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
         float y[8];
+        staged_row8<BN>(ring, r, c8, sx[row], y);
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-            float v = (float)av[e] * sxr * s_sw[c8 + e] + s_bias[c8 + e];
+            float v = y[e];
             if (gelu) v = gelu_tanh(v);
             if (!keep) v = 0.f;
             y[e] = v;
@@ -546,71 +504,70 @@ __global__ void __launch_bounds__(GEMM_THREADS_HOPPER, 2) qdense_wgmma_kernel(
                 y[2 * e + 1] = rf.y + gv[2 * e + 1] * y[2 * e + 1];
             }
         }
-        uint4 packed;
-        __nv_bfloat162* pp = reinterpret_cast<__nv_bfloat162*>(&packed);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) pp[e] = __floats2bfloat162_rn(y[2 * e], y[2 * e + 1]);
-        *reinterpret_cast<uint4*>(out + o) = packed;
+        store_bf16x8(out + o, y);
     }
 }
 
 // ---------------------------------------------------------------------------
-// qkv_rope (K3): blockIdx.z picks q (0), k (1) or v (2); rows are (b, t),
-// columns (head, d); out[z] (B, H, T, dh) bf16. Rotary pairs (2i, 2i+1) of
-// the first dh columns (head 0) sit in one thread's two accumulators.
+// qkv_rope (K3): the same GEMM, blockIdx.z picking q (0), k (1) or v (2)
+// through three weight tensor maps (x's codes are the same for all three);
+// rows are (b, t), columns (head, d); out[z] (B, H, T, dh) bf16, dh % 8 == 0.
+// Each epilogue thread finishes 8 consecutive columns, i.e. four whole
+// rotary pairs (2i, 2i+1) of one head: for head 0 of q and k it rotates them
+// with the f32 table of position t, then q takes q_scale, then the 8 values
+// are rounded to bf16 once and stored as 16 bytes at (b, head, t, d..d+7).
 // ---------------------------------------------------------------------------
 
 struct QkvArgs {
-    const int8_t* w[3];
     const float* s[3];
     const float* b[3];
     __nv_bfloat16* out[3];
 };
 
-__global__ void __launch_bounds__(GEMM_THREADS) qkv_rope_kernel(
-    const int8_t* __restrict__ xq, const float* __restrict__ sx, QkvArgs args, const float* __restrict__ cos_t,
+template <int BN>
+__global__ void __launch_bounds__(GEMM_THREADS_HOPPER, 2) qkv_rope_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_wq,
+    const __grid_constant__ CUtensorMap tm_wk, const __grid_constant__ CUtensorMap tm_wv,
+    const float* __restrict__ sx, const QkvArgs args, const float* __restrict__ cos_t,
     const float* __restrict__ sin_t, int M, int N, int K, int T, int dh, float q_scale) {
-    __shared__ __align__(16) GemmSmem sm;
+    using C = GemmCfg<BN>;
+    extern __shared__ __align__(1024) uint8_t dyn_smem[];
+    const GemmRing<BN> ring(dyn_smem);
     const int z = blockIdx.z;
-    const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-    int acc[4][4][4];
-    gemm_tile(xq, args.w[z], M, K, m0, n0, sm, acc);
+    const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * BN;
+    gemm_setup<BN>(ring, args.s[z], args.b[z], n0);
+    const CUtensorMap* tm_w = z == 0 ? &tm_wq : z == 1 ? &tm_wk : &tm_wv;
+    if (!gemm_tile_staged<BN>(&tm_x, tm_w, ring, m0, n0, K)) return;
 
-    const float* __restrict__ sw = args.s[z];
-    const float* __restrict__ bias = args.b[z];
     __nv_bfloat16* __restrict__ out = args.out[z];
     const int H = N / dh, half = dh / 2;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+    const bool rotate = z < 2;
+    constexpr int GROUPS = BN / 8;
+    for (int idx = threadIdx.x; idx < C::BM * GROUPS; idx += GEMM_CONSUMERS) {
+        const int r = idx / GROUPS, c8 = (idx % GROUPS) * 8;
+        const int row = m0 + r;
+        if (row >= M) break;
+        const int bt = row / T, tt = row % T, col = n0 + c8;
+        float y[8];
+        staged_row8<BN>(ring, r, c8, sx[row], y);
+        if (rotate && col < dh) {
+            const size_t rt = (size_t)tt * half + col / 2;
+            const float4 c4 = *reinterpret_cast<const float4*>(cos_t + rt);
+            const float4 s4 = *reinterpret_cast<const float4*>(sin_t + rt);
+            const float cv[4] = {c4.x, c4.y, c4.z, c4.w}, sv[4] = {s4.x, s4.y, s4.z, s4.w};
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-            const int row = m0 + wm + mi * 16 + g + hr * 8;
-            if (row >= M) continue;
-            const float sxr = sx[row];
-            const int bt = row / T, tt = row % T;
-#pragma unroll
-            for (int ni = 0; ni < 4; ++ni) {
-                const int col = n0 + wn + ni * 8 + t * 2;
-                float y0 = (float)acc[mi][ni][hr * 2] * sxr * sw[col] + bias[col];
-                float y1 = (float)acc[mi][ni][hr * 2 + 1] * sxr * sw[col + 1] + bias[col + 1];
-                if (z < 2 && col < dh) {
-                    const float c = cos_t[tt * half + col / 2], s = sin_t[tt * half + col / 2];
-                    const float r0 = y0 * c + (-y1) * s;
-                    const float r1 = y1 * c + y0 * s;
-                    y0 = r0;
-                    y1 = r1;
-                }
-                if (z == 0 && q_scale != 1.0f) {
-                    y0 *= q_scale;
-                    y1 *= q_scale;
-                }
-                const int head = col / dh, d = col % dh;
-                const long long o = (((long long)bt * H + head) * T + tt) * dh + d;
-                *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(y0, y1);
+            for (int p = 0; p < 4; ++p) {
+                const float y0 = y[2 * p], y1 = y[2 * p + 1];
+                y[2 * p] = y0 * cv[p] + (-y1) * sv[p];
+                y[2 * p + 1] = y1 * cv[p] + y0 * sv[p];
             }
         }
+        if (z == 0 && q_scale != 1.0f) {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) y[e] *= q_scale;
+        }
+        const int head = col / dh, d = col % dh;
+        store_bf16x8(out + (((long long)bt * H + head) * T + tt) * dh + d, y);
     }
 }
 
@@ -649,6 +606,16 @@ bool tmap_u8(CUtensorMap* map, const void* base, int rows, int cols, int box_row
                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// once per kernel: its shared memory, and all of the SM's unified memory as
+// shared, so that two blocks fit
+template <typename Kernel>
+void size_smem(Kernel kernel, int bytes, bool& sized) {
+    if (sized) return;
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+    sized = true;
+}
+
 template <int BN>
 cudaError_t launch_qdense_bn(const int8_t* xq, const float* sx, const int8_t* w, const float* sw, const float* bias,
                              const void* res, const float* gate, const float* mask, void* out, int M, int N, int K,
@@ -657,12 +624,7 @@ cudaError_t launch_qdense_bn(const int8_t* xq, const float* sx, const int8_t* w,
     CUtensorMap tx, tw;
     if (!tmap_u8(&tx, xq, M, K, C::BM) || !tmap_u8(&tw, w, N, K, BN)) return cudaErrorInvalidValue;
     static bool sized = false;
-    if (!sized) {  // and all of the SM's unified memory as shared, so that two blocks fit
-        cudaFuncSetAttribute(qdense_wgmma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-        cudaFuncSetAttribute(qdense_wgmma_kernel<BN>, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-        sized = true;
-    }
+    size_smem(qdense_wgmma_kernel<BN>, C::SMEM, sized);
     qdense_wgmma_kernel<BN><<<dim3(N / BN, grid_m), GEMM_THREADS_HOPPER, C::SMEM, (cudaStream_t)stream>>>(
         tx, tw, sx, sw, bias, (const __nv_bfloat16*)res, gate, mask, (__nv_bfloat16*)out, M, N, K, T, gelu);
     return counted(c);
@@ -679,6 +641,22 @@ cudaError_t launch_qdense(const int8_t* xq, const float* sx, const int8_t* w, co
     if (tile_n == 128)
         return launch_qdense_bn<128>(xq, sx, w, sw, bias, res, gate, mask, out, M, N, K, T, gelu, grid_m, c, stream);
     return cudaErrorInvalidValue;
+}
+
+template <int BN>
+cudaError_t launch_qkv_bn(const int8_t* xq, const float* sx, const int8_t* wq, const int8_t* wk, const int8_t* wv,
+                          const QkvArgs& a, const float* cos_t, const float* sin_t, int M, int N, int K, int T,
+                          int dh, float q_scale, int grid_m, void* stream) {
+    using C = GemmCfg<BN>;
+    CUtensorMap tx, tq, tk, tv;
+    if (!tmap_u8(&tx, xq, M, K, C::BM) || !tmap_u8(&tq, wq, N, K, BN) || !tmap_u8(&tk, wk, N, K, BN) ||
+        !tmap_u8(&tv, wv, N, K, BN))
+        return cudaErrorInvalidValue;
+    static bool sized = false;
+    size_smem(qkv_rope_wgmma_kernel<BN>, C::SMEM, sized);
+    qkv_rope_wgmma_kernel<BN><<<dim3(N / BN, grid_m, 3), GEMM_THREADS_HOPPER, C::SMEM, (cudaStream_t)stream>>>(
+        tx, tq, tk, tv, sx, a, cos_t, sin_t, M, N, K, T, dh, q_scale);
+    return counted(C_QKV);
 }
 
 }  // namespace
@@ -720,19 +698,22 @@ int gsv_qdense_out(const int8_t* xq, const float* sx, const int8_t* w, const flo
                               stream);
 }
 
-// three (N, K) int8 weights; cos/sin (T, dh / 2) f32; q, k, v (M / T, N / dh, T, dh) bf16.
+// three (N, K) int8 weights; cos/sin (T, dh / 2) f32; q, k, v (M / T, N / dh, T, dh) bf16;
+// dh % 8 == 0, N % tile_n == 0 (tile_n 64 or 128), grid_m = ceil(M / 128).
 int gsv_qkv_rope(const int8_t* xq, const float* sx, const int8_t* wq, const int8_t* wk, const int8_t* wv,
                  const float* sq, const float* sk, const float* sv, const float* bq, const float* bk, const float* bv,
                  const float* cos_t, const float* sin_t, void* q, void* k, void* v, int M, int N, int K, int T, int dh,
-                 float q_scale, void* stream) {
+                 float q_scale, int tile_n, int grid_m, void* stream) {
+    if (dh % 8 || N % dh) return (int)cudaErrorInvalidValue;
     QkvArgs a;
-    a.w[0] = wq; a.w[1] = wk; a.w[2] = wv;
     a.s[0] = sq; a.s[1] = sk; a.s[2] = sv;
     a.b[0] = bq; a.b[1] = bk; a.b[2] = bv;
     a.out[0] = (__nv_bfloat16*)q; a.out[1] = (__nv_bfloat16*)k; a.out[2] = (__nv_bfloat16*)v;
-    const dim3 grid(N / BN, (M + BM - 1) / BM, 3);
-    qkv_rope_kernel<<<grid, GEMM_THREADS, 0, (cudaStream_t)stream>>>(xq, sx, a, cos_t, sin_t, M, N, K, T, dh, q_scale);
-    return (int)counted(C_QKV);
+    if (tile_n == 64)
+        return (int)launch_qkv_bn<64>(xq, sx, wq, wk, wv, a, cos_t, sin_t, M, N, K, T, dh, q_scale, grid_m, stream);
+    if (tile_n == 128)
+        return (int)launch_qkv_bn<128>(xq, sx, wq, wk, wv, a, cos_t, sin_t, M, N, K, T, dh, q_scale, grid_m, stream);
+    return (int)cudaErrorInvalidValue;
 }
 
 void gsv_qmm_launch_counts(long long* out) {

@@ -260,6 +260,11 @@ def generate(
     tp = prompt_ids.shape[1]
     t_total = tx + tp + max_new_tokens
     if use_fused_kernel:
+        from gpt_sovits_tpu_torch.ops.decode_step import check_step_request
+
+        # the last step attends to a prefix of tx + tp + max_new_tokens - 2 slots
+        check_step_request(dev, cfg.hidden_dim, cfg.ffn_dim, cfg.num_heads, tx + tp + max(max_new_tokens - 2, 0),
+                           kv_cache_quant == "int8")
         t_total = -(-t_total // 512) * 512  # the TPU kernel's chunk; same shapes
     eos = cfg.eos_id
     rows = torch.arange(b, device=dev)

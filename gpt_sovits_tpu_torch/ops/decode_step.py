@@ -3,18 +3,24 @@ gpt_sovits_tpu/ops/pallas/decode_step.py `fused_decode_step`.
 
 One token step through all L post-LN layers for B <= 8 rows, with stacked
 weights in bf16 or W8A8 int8 and a K||V cache in bf16 or int8. On CUDA
-tensors the three kernels of ``csrc/decode_step.cu`` run the step
-(``proj``, ``decode_attn``, ``add_layernorm``; see the note at the top of
-that file for what bounds them); on CPU tensors each wrapper takes its plain
-PyTorch twin. ``fused_decode_step_plain`` runs the whole step on the twins
-on any device, which is what the kernels are held against.
+tensors one persistent kernel of ``csrc/decode_step.cu`` runs the whole
+step in one launch (see the note at the top of that file for what bounds it
+and how); on CPU tensors the step runs the plain PyTorch twins.
+``fused_decode_step_plain`` runs the whole step on the twins on any device,
+which is what the kernel is held against. Kernels of one projection
+(``proj``), attention (``decode_attn``) or LayerNorm (``add_layernorm``)
+each stay callable with their twins, as parts; the step launches none.
 
-Layout (as in the JAX package): kv_cache (L, B, T, 2D) with K in [0, D) and
-V in [D, 2D); kv_scales (L, B, 2, T) f32 in int8-KV mode; mask (B, T) f32,
-1 = attendable, EXCLUDING the slot being written (the step attends to the
-new token's own K/V itself). The step updates kv_cache/kv_scales in place
-at ``write_idx`` (the JAX function returns new arrays; in place saves a copy
-of the cache per token) and returns them.
+Layout (as in the JAX package, but for the weights): kv_cache (L, B, T, 2D)
+with K in [0, D) and V in [D, 2D); kv_scales (L, B, 2, T) f32 in int8-KV
+mode; mask (B, T) f32, 1 = attendable, EXCLUDING the slot being written (the
+step attends to the new token's own K/V itself). Stacked weight matrices are
+K-major, (L, Dout, Din) (PyTorch's Linear layout; the JAX package stacks
+(L, Din, Dout)), each 16 rows in the kernel's mma fragment order
+(to_fragment_order), so that a block of the kernel reads its output columns
+as one contiguous block. The step updates kv_cache/kv_scales in place at
+``write_idx`` (the JAX function returns new arrays; in place saves a copy of
+the cache per token) and returns them.
 """
 
 from __future__ import annotations
@@ -37,9 +43,12 @@ PROJ_ITER_ROWS = 128  # W rows a proj block reads per pass
 PROJ_TARGET_BLOCKS = 128  # about one proj block per SM (the H100 has 132)
 MAX_TILES = 1024  # tickets per stream: proj's column tiles, decode_attn's (row, head) pairs
 MAX_ROWS = 8
+STEP_WARPS = 8  # warps of a block of the whole-step kernel, which takes a (row, head) (step::WARPS)
+STEP_MAX_SPLITS = 128  # attention splits a (row, head) of the whole-step kernel (step::MAX_SPLITS)
+STEP_DIMS = (512, 2048, 16)  # the (D, F, heads) the whole-step kernel is built for (S1Config)
 
 # the kernels, in the order gsv_launch_counts reports their launches
-# (fused_decode_step: whole steps run by gsv_decode_step)
+# (fused_decode_step: the whole-step kernel)
 KERNELS = ("proj", "decode_attn", "add_layernorm", "fused_decode_step")
 
 
@@ -74,11 +83,44 @@ def _quantize_cols(w: torch.Tensor):
     return q, s
 
 
+FRAG_ROWS = 16  # output columns a block of the whole-step kernel owns: the mma's m
+
+
+def _fragment_dims(w: torch.Tensor):
+    l, n, k = w.shape
+    ks = 32 if w.dtype == torch.int8 else 16  # K of one mma.sync k-step
+    if n % FRAG_ROWS or k % ks:
+        raise ValueError(f"fragment order needs N % {FRAG_ROWS} == 0 and K % {ks} == 0, got {(n, k)}")
+    return l, n, k, ks
+
+
+def to_fragment_order(w: torch.Tensor) -> torch.Tensor:
+    """(L, N, K) K-major matrices, each 16 rows reordered as the whole-step
+    kernel's mma A fragments: for item i (rows 16 i..), k-step s (32 int8 or
+    16 bf16 of K), lane 4 g + t and register j, the values of row
+    16 i + g + 8 (j & 1) at k = s KS + (KS / 2)(j >> 1) + (KS / 8) t + e,
+    e < KS / 8, are stored together, so a lane's four registers are 16
+    contiguous bytes and an item is one contiguous block. Same shape."""
+    l, n, k, ks = _fragment_dims(w)
+    e = ks // 8
+    # source (L, i, h, g, s, jh, t, e) -> (L, i, s, g, t, jh, h, e)
+    return w.reshape(l, n // 16, 2, 8, k // ks, 2, 4, e).permute(0, 1, 4, 3, 6, 5, 2, 7).reshape(l, n, k).contiguous()
+
+
+def from_fragment_order(w: torch.Tensor) -> torch.Tensor:
+    """The inverse of to_fragment_order: plain (L, N, K) rows."""
+    l, n, k, ks = _fragment_dims(w)
+    e = ks // 8
+    return w.reshape(l, n // 16, k // ks, 8, 4, 2, 2, e).permute(0, 1, 6, 3, 2, 5, 4, 7).reshape(l, n, k)
+
+
 def stack_weights_from_params(state_dict: dict, num_layers: int, quant: str = "bf16") -> dict:
     """Stacked per-layer weights from a T2SDecoder state dict (reference
-    names), as decode_step.py:539 builds them from the flax tree: matrices
-    (L, Din, Dout) in bf16, or int8 with (L, 1, Dout) scales; vectors
-    (L, 1, N) f32."""
+    names), the values decode_step.py:539 builds from the flax tree, with
+    the matrices K-major, (L, Dout, Din), in the whole-step kernel's
+    fragment order (to_fragment_order; from_fragment_order gives the plain
+    rows): bf16, or int8 with (L, 1, Dout) per-output-channel scales;
+    vectors (L, 1, N) f32."""
     if quant not in ("bf16", "int8"):
         raise ValueError(f"weight quant {quant!r}: expected 'bf16' or 'int8'")
     pre = [f"h.layers.{i}" for i in range(num_layers)]
@@ -97,11 +139,12 @@ def stack_weights_from_params(state_dict: dict, num_layers: int, quant: str = "b
     }
     for key, name in (("wqkv", "self_attn.in_proj_weight"), ("wo", "self_attn.out_proj.weight"),
                       ("fc1", "linear1.weight"), ("fc2", "linear2.weight")):
-        w = mats(name)
+        w = mats(name)  # (L, Din, Dout), as the JAX package quantizes it
         if quant == "int8":
-            out[key], out[f"{key}_s"] = _quantize_cols(w)
+            w, out[f"{key}_s"] = _quantize_cols(w)
         else:
-            out[key] = w.to(torch.bfloat16)
+            w = w.to(torch.bfloat16)
+        out[key] = to_fragment_order(w.transpose(1, 2).contiguous())
     return out
 
 
@@ -208,9 +251,9 @@ def _lib():
         lib.gsv_proj.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
         lib.gsv_decode_attn.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P]
         lib.gsv_add_layernorm.argtypes = [P, P, P, P, P, I, I, P]
-        PP, IP = ctypes.POINTER(P), ctypes.POINTER(I)
-        lib.gsv_decode_step.argtypes = [P, P, PP, PP, PP, P, P, P, P, P, P, P, P, P, P, P, P, I, IP, I, F,
-                                        I, I, I, I, I, I, I, I, I, P]
+        PP = ctypes.POINTER(P)
+        lib.gsv_decode_step.argtypes = [P, P, PP, PP, PP, P, P, P, P, P, P, P, P, P, F,
+                                        I, I, I, I, I, I, I, I, P]
         for fn in (lib.gsv_proj, lib.gsv_decode_attn, lib.gsv_add_layernorm, lib.gsv_decode_step):
             fn.restype = ctypes.c_int
         lib.gsv_launch_counts.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
@@ -234,6 +277,9 @@ def _check(name, t, dtype, shape=None, device=None):
         raise ValueError(f"{name}: must be contiguous")
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: must be 16-byte aligned")
+
+
+COOPERATIVE_TOO_LARGE = 720  # cudaErrorCooperativeLaunchTooLarge
 
 
 def _raise(rc: int, name: str):
@@ -426,14 +472,16 @@ def _step_plain(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads):
     quant = weights["wqkv"].dtype == torch.int8
     sc = (lambda k, i: weights[f"{k}_s"][i]) if quant else (lambda k, i: None)
     kv_new = torch.empty((n_layers, b, d2), dtype=torch.bfloat16, device=x.device)
+    plain = {k: from_fragment_order(weights[k]) for k in MATS}
+    w = lambda k, i: plain[k][i].t()  # noqa: E731  (Din, Dout)
     for i in range(n_layers):
-        qkv = proj_plain(x, weights["wqkv"][i], weights["bqkv"][i], sc("wqkv", i))
+        qkv = proj_plain(x, w("wqkv", i), weights["bqkv"][i], sc("wqkv", i))
         kv_new[i] = qkv[:, d:]
         ctx = decode_attn_plain(qkv, kv_cache[i], kv_scales[i] if int8_kv else None, mask, write_idx, num_heads)
-        a = proj_plain(ctx, weights["wo"][i], weights["bo"][i], sc("wo", i))
+        a = proj_plain(ctx, w("wo", i), weights["bo"][i], sc("wo", i))
         xn = add_layernorm_plain(x, a, weights["n1s"][i], weights["n1b"][i])
-        hdn = proj_plain(xn, weights["fc1"][i], weights["b1"][i], sc("fc1", i), relu=True)
-        y2 = proj_plain(hdn, weights["fc2"][i], weights["b2"][i], sc("fc2", i))
+        hdn = proj_plain(xn, w("fc1", i), weights["b1"][i], sc("fc1", i), relu=True)
+        y2 = proj_plain(hdn, w("fc2", i), weights["b2"][i], sc("fc2", i))
         x = add_layernorm_plain(xn, y2, weights["n2s"][i], weights["n2b"][i])
     # the new token's K/V go into the cache after all layers read it
     return _result(x, *_write_new_kv(kv_cache, kv_scales, kv_new, write_idx))
@@ -442,59 +490,101 @@ def _step_plain(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads):
 MATS = ("wqkv", "wo", "fc1", "fc2")  # the order gsv_decode_step takes them in
 VECS = ("bqkv", "bo", "n1s", "n1b", "n2s", "n2b", "b1", "b2")
 
+_SYNC: dict = {}
+
+
+def _sync(device, stream: int) -> torch.Tensor:
+    """The whole-step kernel's grid barrier count for one stream: zeroed
+    once; each launch grows it by a multiple of the grid."""
+    key = (device, stream)
+    if key not in _SYNC:
+        _SYNC[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _SYNC[key]
+
+
+def step_splits(write_idx: int, kv_int8: bool) -> tuple[int, int]:
+    """(slot_r, n_split) of the whole-step kernel's attention: a block takes
+    a (row, head) and cuts its live prefix [0, write_idx) into n_split
+    splits of 32 x slot_r cache slots (a warp a split, slot_r slots a lane),
+    at least one. slot_r is the smallest of 1, 2 (and 4 with int8 KV) that
+    gives each warp of the block at most one split, or the largest."""
+    choices = (1, 2, 4) if kv_int8 else (1, 2)
+    for r in choices:
+        n_split = max(1, -(-write_idx // (32 * r)))
+        if n_split <= STEP_WARPS:
+            break
+    if n_split > STEP_MAX_SPLITS:
+        raise ValueError(f"the step kernel attends to at most {STEP_MAX_SPLITS * 32 * r} cache slots, got {write_idx}")
+    return r, n_split
+
+
+def _check_step_dims(d: int, f: int, num_heads: int):
+    if (d, f, num_heads) != STEP_DIMS:
+        raise ValueError(f"the step kernel is built for (D, F, heads) = {STEP_DIMS}, got {(d, f, num_heads)}")
+
+
+def check_step_request(device, d: int, f: int, num_heads: int, last_write_idx: int, kv_int8: bool):
+    """Refuses, before a request does any work, what the step kernel cannot
+    run: widths other than STEP_DIMS on a card (the CPU twins take any), and
+    on every device a live prefix longer than the kernel's attention splits
+    reach (step_splits), so that the CPU refuses what the card would."""
+    if torch.device(device).type == "cuda":
+        _check_step_dims(d, f, num_heads)
+    step_splits(last_write_idx, kv_int8)
+
 
 def _step_cuda(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads):
-    """The layer loop of _step_plain on the kernels, run by one host call
-    (gsv_decode_step) that makes the 7 launches of each layer: a loop of
-    168 launches in Python costs more host time than the kernels take."""
+    """The whole step in one launch of the persistent kernel
+    (gsv_decode_step), which also writes the new token's K/V into the cache."""
     _check_step(x, weights, kv_cache, mask, write_idx, kv_scales)
     n_layers, b, t, d2 = kv_cache.shape
     d = d2 // 2
     dev = x.device
     quant = weights["wqkv"].dtype == torch.int8
     int8_kv = kv_cache.dtype == torch.int8
-    f = weights["fc1"].shape[-1]
-    dims = dict(zip(MATS, ((d, 3 * d), (d, d), (d, f), (f, d))))
+    f = weights["fc1"].shape[1]
+    _check_step_dims(d, f, num_heads)
+    if not 1 <= b <= MAX_ROWS:
+        raise ValueError(f"the step takes 1..{MAX_ROWS} rows, got {b}")
+    dims = dict(zip(MATS, ((3 * d, d), (d, d), (f, d), (d, f))))  # (N, K)
     widths = dict(zip(VECS, (3 * d, d, d, d, d, d, f, d)))
     _check("x", x, torch.float32, (b, d), dev)
     _check("kv_cache", kv_cache, (torch.bfloat16, torch.int8), None, dev)
     _check("mask", mask, torch.float32, (b, t), dev)
     if int8_kv:
         _check("kv_scales", kv_scales, torch.float32, (n_layers, b, 2, t), dev)
-    for key, (k_in, k_out) in dims.items():
-        _check(key, weights[key], torch.int8 if quant else torch.bfloat16, (n_layers, k_in, k_out), dev)
-        _check_proj_dims(b, k_out)
+    for key, (k_out, k_in) in dims.items():
+        _check(key, weights[key], torch.int8 if quant else torch.bfloat16, (n_layers, k_out, k_in), dev)
         if quant:
             _check(f"{key}_s", weights[f"{key}_s"], torch.float32, (n_layers, 1, k_out), dev)
     for key, n in widths.items():
         _check(key, weights[key], torch.float32, (n_layers, 1, n), dev)
-    _check_attn_dims(b, d, num_heads)
 
     f32 = dict(dtype=torch.float32, device=dev)
-    qkv = torch.empty((n_layers, b, 3 * d), **f32)
-    h, ctx, a, xn, y2 = (torch.empty((b, d), **f32) for _ in range(5))
+    h = torch.empty((b, d), **f32)
+    qkv = torch.empty((b, 3 * d), **f32)
+    ctx, attn, y2 = (torch.empty((b, d), **f32) for _ in range(3))
     hdn = torch.empty((b, f), **f32)
-    splits = [_proj_splits(k, n) for k, n in dims.values()]
-    part = torch.empty(max(s * b * n for s, (_, n) in zip(splits, dims.values())), **f32)
-    apart = torch.empty((b, num_heads, _attn_splits(write_idx), ATTN_PART), **f32)
+    slot_r, splits = step_splits(write_idx, int8_kv)
     ptrs = lambda keys: (ctypes.c_void_p * len(keys))(*(weights[k].data_ptr() for k in keys))  # noqa: E731
     stream = _stream(x)
     rc = _lib().gsv_decode_step(
         x.data_ptr(), h.data_ptr(), ptrs(MATS), ptrs([f"{k}_s" for k in MATS]) if quant else None, ptrs(VECS),
         kv_cache.data_ptr(), kv_scales.data_ptr() if int8_kv else None, mask.data_ptr(),
-        *(z.data_ptr() for z in (qkv, ctx, a, xn, hdn, y2, part, apart)), _tickets(dev, stream), MAX_TILES,
-        (ctypes.c_int * 4)(*splits), _attn_splits(write_idx), _attn_scale(d, num_heads),
-        n_layers, b, d, f, num_heads, t, write_idx, int(quant), int(int8_kv), stream,
+        *(z.data_ptr() for z in (qkv, ctx, attn, hdn, y2)), _sync(dev, stream).data_ptr(),
+        _attn_scale(d, num_heads), n_layers, b, t, write_idx, splits, slot_r, int(quant), int(int8_kv), stream,
     )
+    if rc == COOPERATIVE_TOO_LARGE:
+        raise RuntimeError("the step kernel needs its 128 blocks resident at once, and this card holds fewer")
     _raise(rc, "decode_step")
-    return _result(h, *_write_new_kv(kv_cache, kv_scales, qkv[:, :, d:].to(torch.bfloat16), write_idx))
+    return _result(h, kv_cache, kv_scales)
 
 
 def fused_decode_step(x, weights, kv_cache, mask, write_idx: int, kv_scales=None, *, num_heads: int = 16):
     """Returns (hidden (B, D) f32, kv_cache) -- plus kv_scales in int8-KV
     mode -- with the new K||V written at write_idx. Weights as built by
-    `stack_weights_from_params`. CUDA tensors run the kernels; CPU tensors
-    run the plain twins."""
+    `stack_weights_from_params`. CUDA tensors run the whole-step kernel;
+    CPU tensors run the plain twins."""
     if _route(x):
         return _step_cuda(x, weights, kv_cache, mask, int(write_idx), kv_scales, num_heads)
     return _step_plain(x, weights, kv_cache, mask, int(write_idx), kv_scales, num_heads)

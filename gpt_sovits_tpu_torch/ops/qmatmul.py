@@ -3,8 +3,8 @@ gpt_sovits_tpu/ops/pallas/qmatmul.py `qdense_int8`, `qkv_rope_int8` and
 `qdense_out_int8`.
 
 On CUDA tensors each wrapper launches the kernels of ``csrc/qmatmul.cu``
-(``row_quant``, then ``qdense`` or ``qkv_rope``; for K4 ``row_quant_heads``,
-then the qdense GEMM, tiled as ``gemm_plan`` says; the note at the top of
+(``row_quant``, then the s8 GEMM as ``qdense`` or ``qkv_rope``; for K4
+``row_quant_heads``, then ``qdense``; tiled as ``gemm_plan`` says; the note at the top of
 that file says what bounds them); on CPU tensors it takes its plain PyTorch twin
 (``qdense_int8_plain``, ``qkv_rope_int8_plain``, ``qdense_out_int8_plain``),
 which is what the kernels are held against. There is no other route.
@@ -27,10 +27,10 @@ from gpt_sovits_tpu_torch.ops import build
 
 INV127 = float(np.float32(1.0 / 127.0))
 LN_EPS = 1e-6
-GEMM_TILE_N = 128  # N must be a multiple of this (K3's block width, and the wide qdense tile)
+GEMM_TILE_N = 128  # N must be a multiple of this (the wide GEMM tile)
 GEMM_TILE_K = 64  # K must be a multiple of this (the TMA rows are 16-byte aligned; the last slot is zero-filled)
-GEMM_TILE_M = 128  # output rows per qdense block (csrc/qmatmul.cu GemmCfg::BM)
-GEMM_TILES_N = (64, 128)  # the qdense block widths the kernel is built for
+GEMM_TILE_M = 128  # output rows per GEMM block (csrc/qmatmul.cu GemmCfg::BM)
+GEMM_TILES_N = (64, 128)  # the GEMM block widths the kernels are built for
 SMS = 132  # streaming multiprocessors of the H100 SXM
 MAX_K = 2048  # row_quant holds a row of at most this many values
 
@@ -170,7 +170,7 @@ def _lib():
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.gsv_row_quant.argtypes = [P, P, P, P, P, I, I, I, I, P]
         lib.gsv_qdense.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
-        lib.gsv_qkv_rope.argtypes = [P] * 16 + [I, I, I, I, I, F, P]
+        lib.gsv_qkv_rope.argtypes = [P] * 16 + [I, I, I, I, I, F, I, I, P]
         lib.gsv_row_quant_heads.argtypes = [P, P, P, I, I, I, I, P]
         lib.gsv_qdense_out.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P]
         for fn in (lib.gsv_row_quant, lib.gsv_qdense, lib.gsv_qkv_rope, lib.gsv_row_quant_heads, lib.gsv_qdense_out):
@@ -217,15 +217,16 @@ def on_card(t) -> bool:
     raise ValueError(f"no kernel for device {t.device}")
 
 
-def gemm_plan(m: int, n: int) -> tuple[int, int]:
-    """(tile_n, grid_m) of the qdense GEMM for an (m, n) output: blocks of
-    GEMM_TILE_M rows (the last one ragged) by tile_n columns, launched as a
-    (n / tile_n, grid_m) grid. 128-column tiles where they alone give every
-    SM a block, else 64-column ones (two fit an SM): at B = 1 (M = 1024,
-    N = 1024) that is 128 blocks for the 132 SMs instead of 64. The
+def gemm_plan(m: int, n: int, z: int = 1) -> tuple[int, int]:
+    """(tile_n, grid_m) of the s8 GEMM for z (m, n) outputs of one launch
+    (z = 3 for K3's q, k and v): blocks of GEMM_TILE_M rows (the last one
+    ragged) by tile_n columns, launched as an (n / tile_n, grid_m, z) grid.
+    128-column tiles where they alone give every SM a block, else 64-column
+    ones (two fit an SM): at B = 1 (M = 1024, N = 1024) K2 launches 128
+    blocks for the 132 SMs instead of 64, and K3 192 wide ones. The
     threshold is measured (chip_smoke.py gemm_tile_phase, PERF.md)."""
     grid_m = -(-m // GEMM_TILE_M)
-    tile_n = 128 if grid_m * (n // 128) >= SMS else 64
+    tile_n = 128 if grid_m * (n // 128) * z >= SMS else 64
     return tile_n, grid_m
 
 
@@ -323,17 +324,41 @@ def _rope_cached(t_len: int, dim_head: int, device):
     return _ROPE[key]
 
 
+def _qkv_gemm(xq, sx, ws, ss, bs, b: int, t: int, dim_head: int, q_scale: float, tile_n: int | None = None):
+    """Launch K3's GEMM on row_quant's codes xq (B*T, K) and scales sx:
+    q, k, v bf16 (B, N/dim_head, T, dim_head). tile_n overrides gemm_plan's
+    width (a measurement's knob)."""
+    m = b * t
+    n = ws[0].shape[0]
+    dev = xq.device
+    plan_n, grid_m = gemm_plan(m, n, 3)
+    tile_n = plan_n if tile_n is None else tile_n
+    if tile_n not in GEMM_TILES_N:
+        raise ValueError(f"qkv_rope tiles are {GEMM_TILES_N} columns wide, got {tile_n}")
+    cos, sin = _rope_cached(t, dim_head, dev)
+    outs = tuple(torch.empty((b, n // dim_head, t, dim_head), dtype=torch.bfloat16, device=dev) for _ in range(3))
+    rc = _lib().gsv_qkv_rope(
+        xq.data_ptr(), sx.data_ptr(), *(w.data_ptr() for w in ws), *(s.data_ptr() for s in ss),
+        *(v.data_ptr() for v in bs), cos.data_ptr(), sin.data_ptr(), *(o.data_ptr() for o in outs),
+        m, n, xq.shape[1], t, dim_head, float(q_scale), tile_n, grid_m, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    raise_on(rc, "qkv_rope_int8")
+    return outs
+
+
 def qkv_rope_int8(x, wq, wk, wv, sq, sk, sv, bq, bk, bv, ln_mod=None, *, dim_head: int, q_scale: float = 1.0):
     """K3. See qkv_rope_int8_plain for the function; on CUDA: x bf16
     (B, T, K), three int8 (N, K) weights with f32 (N,) scales and biases,
-    ln_mod f32 (B, K) each; returns q, k, v bf16 (B, N/dim_head, T, dim_head)."""
+    ln_mod f32 (B, K) each, dim_head a multiple of 8 (an epilogue thread's
+    8 columns lie in one head); returns q, k, v bf16 (B, N/dim_head, T,
+    dim_head)."""
     card = on_card(x)
     b, t, k = x.shape
     n = wq.shape[0]
     dev = x.device
     _check_gemm(k, n)
-    if dim_head % 2 or n % dim_head:
-        raise ValueError(f"dim_head {dim_head} must be even and divide N={n}")
+    if dim_head % 8 or n % dim_head:
+        raise ValueError(f"dim_head {dim_head} must be a multiple of 8 and divide N={n}")
     check("x", x, torch.bfloat16, (b, t, k), dev, card)
     for nm, w in (("wq", wq), ("wk", wk), ("wv", wv)):
         check(nm, w, torch.int8, (n, k), dev, card)
@@ -343,16 +368,7 @@ def qkv_rope_int8(x, wq, wk, wv, sq, sk, sv, bq, bk, bv, ln_mod=None, *, dim_hea
     if not card:
         return qkv_rope_int8_plain(x, wq, wk, wv, sq, sk, sv, bq, bk, bv, ln_mod, dim_head=dim_head, q_scale=q_scale)
     xq, sx = _row_quant(x, ln_mod)
-    cos, sin = _rope_cached(t, dim_head, dev)
-    h = n // dim_head
-    q, k_, v = (torch.empty((b, h, t, dim_head), dtype=torch.bfloat16, device=dev) for _ in range(3))
-    rc = _lib().gsv_qkv_rope(
-        xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), sq.data_ptr(), sk.data_ptr(),
-        sv.data_ptr(), bq.data_ptr(), bk.data_ptr(), bv.data_ptr(), cos.data_ptr(), sin.data_ptr(), q.data_ptr(),
-        k_.data_ptr(), v.data_ptr(), b * t, n, k, t, dim_head, float(q_scale), torch.cuda.current_stream(dev).cuda_stream,
-    )
-    raise_on(rc, "qkv_rope_int8")
-    return q, k_, v
+    return _qkv_gemm(xq, sx, (wq, wk, wv), (sq, sk, sv), (bq, bk, bv), b, t, dim_head, q_scale)
 
 
 def qdense_out_int8(attn, wq, sw, bias, res_gate_mask=None):

@@ -129,13 +129,20 @@ def test_quantizers_exactly_equal():
     np.testing.assert_array_equal(scp.numpy(), np.asarray(scj))
 
 
+MATS = ("wqkv", "wo", "fc1", "fc2")
+
+
 @pytest.mark.parametrize("quant", ["bf16", "int8"])
 def test_stacked_weights_equal(params, quant):
+    """The same values as the JAX package's stack: its (L, Din, Dout)
+    matrices are the port's K-major (L, Dout, Din) ones, taken out of the
+    kernel's fragment order, transposed."""
     jw = jds.stack_weights_from_params(params, TINY["num_layers"], quant=quant)
     pw = _torch_weights(params, quant)
     assert set(jw) == set(pw)
     for k in jw:
-        np.testing.assert_array_equal(pw[k].float().numpy(), np.asarray(jw[k], np.float32), err_msg=k)
+        got = pds.from_fragment_order(pw[k]).transpose(1, 2) if k in MATS else pw[k]
+        np.testing.assert_array_equal(got.float().numpy(), np.asarray(jw[k], np.float32), err_msg=k)
 
 
 def test_wrappers_route_by_device():
@@ -150,3 +157,143 @@ def test_wrappers_route_by_device():
     assert pds.launch_counts() == before  # the plain twin is not a kernel launch
     with pytest.raises(ValueError, match="no kernel"):
         pds.proj(x.to("meta"), w.to("meta"), bias.to("meta"))
+
+
+@pytest.mark.parametrize("quant", ["bf16", "int8"])
+def test_step_routes_by_device(params, quant):
+    """The whole step on CPU tensors is its plain twin, bit for bit, with no
+    launch counted; a device with no kernel (meta) is refused."""
+    x, kv, mask = _case(2, seed=4)
+    pw = _torch_weights(params, quant)
+    before = pds.launch_counts()
+    args = (torch.from_numpy(x), pw)
+    y, kv_y = pds.fused_decode_step(*args, torch.from_numpy(kv).to(torch.bfloat16), torch.from_numpy(mask), N_VALID,
+                                    num_heads=TINY["num_heads"])
+    y_ref, kv_ref = pds.fused_decode_step_plain(*args, torch.from_numpy(kv).to(torch.bfloat16),
+                                                torch.from_numpy(mask), N_VALID, num_heads=TINY["num_heads"])
+    torch.testing.assert_close(y, y_ref, rtol=0, atol=0)
+    torch.testing.assert_close(kv_y, kv_ref, rtol=0, atol=0)
+    assert pds.launch_counts() == before
+    meta = {k: v.to("meta") for k, v in pw.items()}
+    with pytest.raises(ValueError, match="no kernel"):
+        pds.fused_decode_step(args[0].to("meta"), meta, kv_y.to("meta"), torch.from_numpy(mask).to("meta"), N_VALID,
+                              num_heads=TINY["num_heads"])
+
+
+@pytest.mark.parametrize("quant", ["bf16", "int8"])
+def test_stacked_matrices_are_k_major(params, quant):
+    """Each layer's stacked matrix, out of the fragment order, is the state
+    dict's Linear weight (N, K): bf16-rounded, or int8 codes whose per-row
+    scale brings them back within half a step; the round trip from the JAX
+    tree through s1_from_jax is unchanged. The stack is contiguous, as the
+    step kernel streams it."""
+    sd = s1_from_jax(jax.tree.map(np.asarray, params), S1Config(**TINY))
+    pw = _torch_weights(params, quant)
+    assert all(pw[k].is_contiguous() for k in MATS)
+    pw = {**pw, **{k: pds.from_fragment_order(pw[k]) for k in MATS}}
+    names = {"wqkv": "self_attn.in_proj_weight", "wo": "self_attn.out_proj.weight", "fc1": "linear1.weight",
+             "fc2": "linear2.weight"}
+    for k, name in names.items():
+        for i in range(TINY["num_layers"]):
+            ref = sd[f"h.layers.{i}.{name}"].float()
+            assert pw[k][i].shape == ref.shape, k
+            if quant == "int8":
+                s = pw[f"{k}_s"][i].reshape(-1, 1)
+                assert pw[f"{k}_s"][i].shape == (1, ref.shape[0]), k
+                assert float(((pw[k][i].float() * s - ref).abs() - 0.5 * s).max()) <= 1e-6, k
+            else:
+                torch.testing.assert_close(pw[k][i].float(), ref.to(torch.bfloat16).float(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_fragment_order_is_the_mma_a_fragments(dtype):
+    """to_fragment_order puts, for each 16-row item, k-step s, lane 4 g + t
+    and register j, the A-fragment values of mma.sync m16n8k32 s8 (int8) or
+    m16n8k16 bf16 next to each other, as csrc/decode_step.cu item_mma reads
+    them (16 bytes a lane at (s * 32 + lane) * 16); from_fragment_order
+    inverts it."""
+    rng = np.random.default_rng(5)
+    l, n, k = 2, 32, 128
+    w = torch.from_numpy(rng.integers(-127, 128, (l, n, k)).astype(np.float32)).to(dtype)
+    f = pds.to_fragment_order(w)
+    assert f.shape == w.shape and f.is_contiguous()
+    torch.testing.assert_close(pds.from_fragment_order(f), w, rtol=0, atol=0)
+    ks = 32 if dtype == torch.int8 else 16
+    per = ks // 8  # values a register
+    for layer in range(l):
+        for item in range(n // 16):
+            block = f[layer, item * 16:(item + 1) * 16].reshape(-1)  # the item, as one contiguous block
+            for s_ in range(k // ks):
+                for lane in range(32):
+                    g, t = lane >> 2, lane & 3
+                    for j in range(4):
+                        row = item * 16 + g + 8 * (j & 1)
+                        k0 = s_ * ks + (ks // 2) * (j >> 1) + per * t
+                        got = block[(s_ * 32 + lane) * 4 * per + j * per:][:per]
+                        torch.testing.assert_close(got, w[layer, row, k0:k0 + per], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("quant", ["bf16", "int8"])
+@pytest.mark.parametrize("n_valid", [1, 33, 200])
+def test_step_matches_pallas_at_other_prefixes(params, quant, n_valid):
+    """The twin on the K-major stack against Pallas at live prefixes that
+    end inside a 32-slot attention item of the step kernel (1, 33) and span
+    several (200), at the bars of test_step_matches_pallas."""
+    x, kv, mask = _case(1, seed=3)
+    mask[:, :n_valid] = 1.0
+    mask[:, n_valid:] = 0.0
+    jw = jds.stack_weights_from_params(params, TINY["num_layers"], quant=quant)
+    with pltpu.force_tpu_interpret_mode():
+        yj, kvj = jds.fused_decode_step(
+            jnp.asarray(x), jw, jnp.asarray(kv).astype(jnp.bfloat16), jnp.asarray(mask), jnp.asarray(n_valid),
+            chunk=256, num_heads=TINY["num_heads"],
+        )
+    pw = _torch_weights(params, quant)
+    yp, kvp = pds.fused_decode_step(torch.from_numpy(x), pw, torch.from_numpy(kv).to(torch.bfloat16),
+                                    torch.from_numpy(mask), n_valid, num_heads=TINY["num_heads"])
+    np.testing.assert_allclose(kvp[:, :, n_valid].float().numpy(), np.asarray(kvj, np.float32)[:, :, n_valid],
+                               atol=2e-2, rtol=2e-2)
+    head = np.asarray(params["params"]["predict"]["kernel"])
+    lj, lp = np.asarray(yj) @ head, yp.numpy() @ head
+    np.testing.assert_allclose(lp, lj, atol=5e-2, rtol=5e-2)
+    assert np.corrcoef(lp.ravel(), lj.ravel())[0, 1] > 0.9999
+
+
+@pytest.mark.parametrize("write_idx", [0, 1, 31, 32, 33, 745, 1023, 2047])
+def test_step_splits_cover_the_prefix(write_idx):
+    """The step kernel's attention splits (32 x slot_r slots each) cover the
+    live prefix [0, write_idx) exactly once, with at least one split per
+    (row, head), which also carries the fresh K/V when the prefix is empty;
+    slot_r grows with the prefix only as far as the block's warps need, and
+    stays within what each KV mode is built for."""
+    for kv_int8 in (False, True):
+        r, n = pds.step_splits(write_idx, kv_int8)
+        assert r in ((1, 2, 4) if kv_int8 else (1, 2)) and 1 <= n <= pds.STEP_MAX_SPLITS
+        slots = 32 * r
+        covered = [t for s in range(n) for t in range(s * slots, min((s + 1) * slots, write_idx))]
+        assert covered == list(range(write_idx))
+        assert n == 1 or (n - 1) * slots < write_idx
+        if r > 1:  # a smaller slot_r would have given a warp more than one split
+            assert -(-write_idx // (16 * r)) > pds.STEP_WARPS
+
+
+def test_step_splits_refuse_a_prefix_past_the_kernel():
+    with pytest.raises(ValueError, match="at most"):
+        pds.step_splits(pds.STEP_MAX_SPLITS * 64 + 1, False)
+
+
+@pytest.mark.parametrize("kv_int8", [False, True])
+def test_step_request_refused_before_any_work(kv_int8):
+    """check_step_request refuses, on every device, a request whose last
+    step attends past the kernel's splits, and accepts the longest one they
+    reach; on a card it also refuses widths other than STEP_DIMS, which the
+    CPU twins take."""
+    reach = pds.STEP_MAX_SPLITS * 32 * (4 if kv_int8 else 2)
+    d, f, h = pds.STEP_DIMS
+    for dev in ("cpu", "cuda"):
+        pds.check_step_request(dev, d, f, h, reach, kv_int8)
+        with pytest.raises(ValueError, match="at most"):
+            pds.check_step_request(dev, d, f, h, reach + 1, kv_int8)
+    pds.check_step_request("cpu", TINY["hidden_dim"], TINY["ffn_dim"], TINY["num_heads"], N_VALID, kv_int8)
+    with pytest.raises(ValueError, match="built for"):
+        pds.check_step_request("cuda", TINY["hidden_dim"], TINY["ffn_dim"], TINY["num_heads"], N_VALID, kv_int8)

@@ -116,6 +116,44 @@ def test_qkv_rope_twin_matches_pallas(ln):
     assert float((flat[:, 50:, :dh] - q_plain[:, 50:, :dh]).abs().max()) > 0.1
 
 
+@pytest.mark.parametrize("b, t, q_scale", [(1, 100, 1.0), (3, 100, 0.125), (2, 200, 0.5)])
+def test_qkv_rope_twin_matches_pallas_ragged_and_q_scale(b, t, q_scale):
+    """K3 at row counts B x T that are no multiple of the GEMM's 128-row
+    tiles (the kernel's last row block is ragged; the Pallas wrapper pads T)
+    and with a static q scale, which only q takes."""
+    rng = np.random.default_rng(31 + t + b)
+    k, heads, dh = 128, 2, 64
+    n = heads * dh
+    x = rng.standard_normal((b, t, k)).astype(np.float32)
+    ws = [_weights(rng, k, n) for _ in range(3)]
+    with pltpu.force_tpu_interpret_mode():
+        want = j_qkv(jnp.asarray(x), *[jnp.asarray(w[0]) for w in ws], *[jnp.asarray(w[1]) for w in ws],
+                     *[jnp.asarray(w[2]) for w in ws], dim_head=dh, block_m=32, q_scale=q_scale)
+    tw = [_torch_w(*w) for w in ws]
+    args = (torch.from_numpy(x), *[w[0] for w in tw], *[w[1] for w in tw], *[w[2] for w in tw])
+    got = qmatmul.qkv_rope_int8(*args, dim_head=dh, q_scale=q_scale)
+    for g, w in zip(got, want):
+        assert g.shape == (b, heads, t, dh)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w)[:, :, :t], **TOL)
+    unscaled = qmatmul.qkv_rope_int8(*args, dim_head=dh)
+    torch.testing.assert_close(got[0], unscaled[0] * q_scale, rtol=1e-6, atol=1e-6)
+    for g, u in zip(got[1:], unscaled[1:]):
+        torch.testing.assert_close(g, u, rtol=0, atol=0)
+
+
+def test_qkv_rope_checks_dim_head_on_the_cpu():
+    """An epilogue thread's 8 columns must lie in one head: dim_head % 8."""
+    x = torch.zeros((1, 4, 128))
+    w = (torch.zeros((132, 128), dtype=torch.int8),) * 3 + (torch.ones(132),) * 3 + (torch.zeros(132),) * 3
+    with pytest.raises(ValueError, match="multiple of 128"):
+        qmatmul.qkv_rope_int8(x, *w, dim_head=12)
+    w = (torch.zeros((128, 128), dtype=torch.int8),) * 3 + (torch.ones(128),) * 3 + (torch.zeros(128),) * 3
+    with pytest.raises(ValueError, match="multiple of 8"):
+        qmatmul.qkv_rope_int8(x, *w, dim_head=4)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        qmatmul.qkv_rope_int8(x, *w, dim_head=12)
+
+
 # K4's epilogue variants: (res_gate, mask); res_gate_mask may be None, and so may its mask
 @pytest.mark.parametrize("variant", ["plain", "res_gate", "res_gate_mask"])
 def test_qdense_out_twin_matches_pallas(variant):
@@ -195,6 +233,20 @@ def test_gemm_plan_fills_the_card_at_the_dit_shapes():
     assert qmatmul.gemm_plan(2560, 1024)[0] == 128
     for n in (1024, 2048):
         assert qmatmul.gemm_plan(4096, n)[0] == 128
+
+
+@pytest.mark.parametrize("b", [1, 2, 4])
+def test_gemm_plan_counts_k3s_three_projections(b):
+    """K3 launches q, k and v in one grid (z = 3), so its plan takes the
+    wide tile as soon as 3 x the 128-column tiles cover the 132 SMs: at
+    every DiT batch, where K2's to_out at B <= 2 takes 64-column tiles."""
+    m, n = b * 1024, 1024
+    tile_n, grid_m = qmatmul.gemm_plan(m, n, 3)
+    assert tile_n == 128 and grid_m * (n // tile_n) * 3 >= qmatmul.SMS
+    assert qmatmul.gemm_plan(m, n) == ({1: 64, 2: 64, 4: 128}[b], grid_m)
+    # ragged: B x T = 1000 rows still take one block per 128 rows, the last partial
+    tile_n, grid_m = qmatmul.gemm_plan(1000, n, 3)
+    assert grid_m == 8 and (grid_m - 1) * qmatmul.GEMM_TILE_M < 1000 <= grid_m * qmatmul.GEMM_TILE_M
 
 
 def test_gemm_contract_checked_on_the_cpu():

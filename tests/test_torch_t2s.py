@@ -146,3 +146,28 @@ def test_sample_token_filter_matches(top_k, top_p, temperature, penalty):
 
 def test_sine_position_table_equal():
     np.testing.assert_array_equal(pt2s.sine_position_table(64, 32), jt2s.sine_position_table(64, 32))
+
+
+@pytest.mark.parametrize("kv_cache_quant", ["bf16", "int8"])
+def test_fused_generate_refuses_a_prefix_past_the_step_kernel(models, monkeypatch, kv_cache_quant):
+    """A request whose last step would attend past the step kernel's splits
+    is refused with ValueError before the prefill or any step runs."""
+    from gpt_sovits_tpu_torch.ops import decode_step as pds
+
+    _, _, pm = models
+    phones, bert, prompts = _inputs(5)
+    b, tx = phones.shape
+    tp = prompts.shape[1]
+    reach = pds.STEP_MAX_SPLITS * 32 * (4 if kv_cache_quant == "int8" else 2)
+
+    def no_work(*a, **k):
+        raise AssertionError("work began before the request was refused")
+
+    monkeypatch.setattr(pm, "prefill", no_work)
+    monkeypatch.setattr(pds, "fused_decode_step", no_work)
+    with pytest.raises(ValueError, match="at most"):
+        pt2s.generate(
+            pm, torch.from_numpy(phones).long(), torch.full((b,), tx), torch.from_numpy(bert),
+            torch.from_numpy(prompts).long(), torch.full((b,), tp), torch.Generator().manual_seed(0),
+            max_new_tokens=reach - tx - tp + 3, use_fused_kernel=True, kv_cache_quant=kv_cache_quant,
+        )
