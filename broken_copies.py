@@ -1,14 +1,14 @@
 """Copies of the port with one fault planted in a CUDA kernel (K1's whole
-step and its part kernels in `csrc/decode_step.cu`, K6 `csrc/snake_aa.cu`,
-K3, K4's path and the s8 GEMM of K2/K3/K4 in `csrc/qmatmul.cu` and its plan
-in `ops/qmatmul.py`, K5 `csrc/qflash.cu`), each of which must fail
-chip_smoke.py's check of that kernel on the card.
+step in `csrc/decode_step.cu`, K6 `csrc/snake_aa.cu` and its plan in
+`ops/snake_aa.py`, K3, K4's path and the s8 GEMM of K2/K3/K4 in
+`csrc/qmatmul.cu` and its plan in `ops/qmatmul.py`, K5 `csrc/qflash.cu`),
+each of which must fail chip_smoke.py's check of that kernel on the card.
 
     python3 broken_copies.py        # one CUDA card; exits non-zero if a copy passes its check
 
 Each copy is gpt_sovits_tpu_torch/ and chip_smoke.py under a temporary
 directory outside the checkout, with one line of one source replaced; its
-checks (chip_smoke.k1_case, attn_cases, snake_case, k3_case, k4_case,
+checks (chip_smoke.k1_case, k1_rows_case, snake_case, k3_case, k4_case,
 k5_case or gemm_case at a main-path shape) run in a child process there, which builds the copy's kernels. The
 same checks run first on the unbroken sources and must pass. One JSON line
 per copy and check: the check's outcome and the end of its assertion
@@ -27,6 +27,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 DS = "gpt_sovits_tpu_torch/csrc/decode_step.cu"
 SNAKE = "gpt_sovits_tpu_torch/csrc/snake_aa.cu"
+SNAKE_PY = "gpt_sovits_tpu_torch/ops/snake_aa.py"
 QMM = "gpt_sovits_tpu_torch/csrc/qmatmul.cu"
 QMM_PY = "gpt_sovits_tpu_torch/ops/qmatmul.py"
 QFLASH = "gpt_sovits_tpu_torch/csrc/qflash.cu"
@@ -34,14 +35,17 @@ CHECKS = {
     # K1's whole step at full width, random and peaked inputs (step_cases)
     "k1_int8": "c.k1_case('int8', 1, g)",
     "k1_bf16": "c.k1_case('bf16', 4, g)",
-    # K1's decode_attn part kernel, random and peaked inputs
-    "attn_int8": "c.attn_cases('int8', 1, g)",
-    "attn_bf16": "c.attn_cases('bf16', 8, g)",
+    # K1's whole step with one write slot a row, random and peaked inputs (rowwise_cases)
+    "k1_rows_int8": "c.k1_rows_case('int8', 2, g)",
+    "k1_rows_bf16": "c.k1_rows_case('bf16', 4, g)",
     # K3 at the DiT chunk (T 1024) with a q scale
     "k3_b1": "c.k3_case(1, 1024, 0.125, g)",
-    # a stage shape whose T (8896) is not a multiple of the 1024-sample tile
-    "snake_f32": "c.snake_case(768, 8896, torch.float32, g)",
-    "snake_bf16": "c.snake_case(768, 8896, torch.bfloat16, g)",
+    # K6 at the first stage shape (1112 chunks of 8: 4 whole tiles of 240 and a partial one)
+    "snake_f32": "c.snake_case(768, 8896, torch.float32, g, timed=False)",
+    "snake_bf16": "c.snake_case(768, 8896, torch.bfloat16, g, timed=False)",
+    # K6 where rows start off a 16-byte boundary (T % 8 != 0): the scalar head and tail
+    "snake_ragged_f32": "c.snake_case(768, 8897, torch.float32, g, timed=False)",
+    "snake_ragged_bf16": "c.snake_case(768, 8897, torch.bfloat16, g, timed=False)",
     "k4": "c.k4_case(1, g)",
     # K5 at the DiT chunk (T 1024, 1000 real keys), B = 1 and 4, and at a T
     # whose last 128-key tile is partial
@@ -61,10 +65,8 @@ COPIES = [
      "    const float w_self = 0.f;", ("k1_int8", "k1_bf16")),
     ("K1: the last layer skipped", DS, "    for (int l = 0; l < a.L; ++l) {", "    for (int l = 0; l < a.L - 1; ++l) {",
      ("k1_int8", "k1_bf16")),
-    ("K1 decode_attn: mask ignored", DS, "        if (!(mask[(size_t)b * T + t] > 0.f)) sc = NEG;",
-     "        // mask ignored", ("attn_int8", "attn_bf16")),
-    ("K1 decode_attn: the fresh K/V dropped", DS, "    const float p_self = expf(sc_self - m_all);",
-     "    const float p_self = 0.f;", ("attn_int8", "attn_bf16")),
+    ("K1: every row's new K/V written at row 0's slot", DS, "    const int slot = a.slot[b];",
+     "    const int slot = a.slot[0];", ("k1_rows_int8", "k1_rows_bf16")),
     ("K3: rotary on no head", QMM, "        if (rotate && col < dh) {", "        if (false) {", ("k3_b1",)),
     ("K3: rotary on every head", QMM, "        if (rotate && col < dh) {", "        if (rotate) {", ("k3_b1",)),
     ("K3: the rotary table read one position off", QMM, "            const size_t rt = (size_t)tt * half + col / 2;",
@@ -74,11 +76,21 @@ COPIES = [
      "    const CUtensorMap* tm_w = z == 0 ? &tm_wq : z == 1 ? &tm_wk : &tm_wv;",
      "    const CUtensorMap* tm_w = z == 0 ? &tm_wq : &tm_wk;", ("k3_b1",)),
     ("K6: s's index not clamped (the interior formula carried on through x at the edges)", SNAKE,
-     "    m = min(max(m, 0), two_t - 1);", "    // m not clamped", ("snake_f32", "snake_bf16")),
-    ("K6: the next channel's alpha and beta", SNAKE, "    const int c = (int)(row % C);",
-     "    const int c = (int)((row + 1) % C);", ("snake_f32", "snake_bf16")),
-    ("K6: the last, partial time tile dropped", SNAKE, "    const int n_tiles = (T + TT - 1) / TT;",
-     "    const int n_tiles = T / TT;", ("snake_f32", "snake_bf16")),
+     "    const bool first = EDGE && c <= 0 && c + R > 0, last = EDGE && c <= n - 1 && c + R > n - 1;",
+     "    const bool first = false, last = false;", ("snake_f32", "snake_bf16")),
+    ("K6: the next channel's alpha and beta", SNAKE, "    const int ch = row % C;",
+     "    const int ch = (row + 1) % C;", ("snake_f32", "snake_bf16")),
+    ("K6: the last, partial time tile dropped", SNAKE_PY, "    tiles = -(-chunks // per_tile)",
+     "    tiles = chunks // per_tile", ("snake_f32", "snake_bf16")),
+    ("K6: the shuffle halo taken from the wrong lane (offset off by one)", SNAKE,
+     "            xa[i] = __shfl_up_sync(FULL, xv[R - 3 + i], 1);",
+     "            xa[i] = __shfl_up_sync(FULL, xv[R - 3 + i], 2);", ("snake_f32", "snake_bf16")),
+    ("K6: the scalar head of a misaligned row skipped", SNAKE,
+     "    const int h0 = head > 0 ? head - R : 0;                 // chunk 0 ends at that boundary",
+     "    const int h0 = head;", ("snake_ragged_f32", "snake_ragged_bf16")),
+    ("K6: a warp's edge samples taken from the wrong neighbour", SNAKE,
+     "    const int j = (tile * WARPS + warp) * 30 + lane - 1;",
+     "    const int j = (tile * WARPS + warp) * 30 + (lane == 0 ? 30 : lane - 1);", ("snake_f32", "snake_bf16")),
     ("K4: heads merged in reverse order", QMM,
      "                src = x + ((b * H + k0 / dh) * T + t) * dh + k0 % dh;",
      "                src = x + ((b * H + (H - 1 - k0 / dh)) * T + t) * dh + k0 % dh;", ("k4",)),

@@ -4,17 +4,17 @@ the full-width v2ProPlus, v4 and v3 zero-shot pipelines through them, and
 prints one JSON line per phase.
 
     python3 chip_smoke.py            # one CUDA card; exits non-zero on any failure
-    python3 chip_smoke.py --parent smoke_tree/parent   # also time K1-K5 on an earlier tree's kernels
+    python3 chip_smoke.py --parent smoke_tree/parent   # also time K1-K6 on an earlier tree's kernels
 
 Phases: device, build, kernels (K1 at L=24, D=512, H=16, F=2048, T_pad=1024,
 a live prefix of 745, B in {1, 8}, bf16 and int8/int8: the whole-step kernel
 on random inputs and on a step whose layer-0 attention is peaked on the
-fresh token with large keys in a masked hole (step_cases), and the part
-kernels proj, decode_attn (also on a peaked softmax) and add_layernorm),
-widths (the whole step at B = 2..7 in both modes, random and peaked, held
-only), path (v2ProPlus: set_ref_audio + several `run` requests with random
-full-width weights made from --seed; launch counts read from the CUDA code:
-one whole-step launch an S1 step, no part launch), teacher (a greedy S1
+fresh token with large keys in a masked hole, step_cases), widths (the
+whole step at B = 2..7 in both modes, random and peaked, held only; at the
+longest prefix it takes; and at B = 2 and 4 with one write slot a row,
+rows at different steps, rowwise_cases), path (v2ProPlus: set_ref_audio +
+several `run` requests with random full-width weights made from --seed;
+launch counts read from the CUDA code: one whole-step launch an S1 step), teacher (a greedy S1
 trajectory through the kernel vs the plain twin), stream_v2 (one
 run_streaming request: a fragment per segment, each of its tokens' length
 plus the silence, and the time to the first); then for v4: kernels (K2, K3,
@@ -27,7 +27,8 @@ with a transcript + two `run` requests through S1, the int8 DiT CFM and the
 CUDA code equal the per-call counts times the CFM calls, and one K1 launch
 an S1 step), cfm_teacher (one full-width CFM chunk through the kernels and
 through the twins, and its profile); then for v3: v3_kernels (K6 at
-BigVGAN's six stage shapes of a 2224-frame mel in bf16 and f32, on x of
+BigVGAN's six stage shapes of a 2224-frame mel in bf16 and f32, timed, and
+at rows off a 16-byte boundary and T = 1, 3, 7, 13, held only, on x of
 amplitude 5-20 with per-channel alpha and beta, edges held on their own; K4
 at (B, 16, 2560, 64) for B in {1, 4}, heads of different scales, 50x pad
 rows under the mask), path_v3 (set_ref_audio with a transcript, then a
@@ -39,8 +40,9 @@ profiler), snake_in_call (K6's 109 launches inside one BigVGAN call under
 the profiler, and the device time its twins take in their place), cfm_long
 (one CFM call at T=2560 through K3 -> SDPA -> K4 -> K2 and through the
 twins); gemm_tiles (the s8 GEMM alone at each tile width, K2/K4's and K3's,
-beside gemm_plan's choice); with --parent, compare_trees (K2, K4, K5, K3 and
-K1's step timed on the earlier tree's kernels and on this tree's, in turns);
+beside gemm_plan's choice); with --parent, compare_trees (K2, K4, K5, K3,
+K1's step and K6 for one BigVGAN call timed on the earlier tree's kernels
+and on this tree's, in turns);
 then the `kernels` summary line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Bounds use the H100 SXM's
 published peaks (3.35 TB/s; 989 TFLOP/s bf16, 1979 TOP/s int8, 67 TFLOP/s
@@ -226,27 +228,40 @@ def peaked_step_inputs(w, quant: str, b: int, g: torch.Generator, live: int = LI
     return (*_step_kv(kv_f, quant), mask, x)
 
 
-def hold_step(w, quant: str, kv, kv_s, mask, x, live: int = LIVE) -> tuple[float, float]:
+def hold_step(w, quant: str, kv, kv_s, mask, x, slots) -> tuple[float, float]:
     """One step through the kernel and through the twin on the card, each
-    on its own copy of the cache: hidden state and the new K/V within the
-    JAX tests' bars (bf16: 2e-2 abs; int8: rel 0.02, the probability scale
-    being per split). Returns the hidden state's (max abs, mean rel) error."""
+    on its own copy of the cache, writing at `slots`: an int, every row's
+    slot, or one slot a row (passed as a (B,) tensor on the card). The
+    hidden state and each row's new K/V at its slot within the JAX tests'
+    bars (bf16: 2e-2 abs; int8: rel 0.02, the probability scale being per
+    split); every other slot of the kernel's cache (and of its scales) as
+    it was. Returns the hidden state's (max abs, mean rel) error."""
+    b, t = mask.shape
+    per_row = [slots] * b if isinstance(slots, int) else list(slots)
+    widx = slots if isinstance(slots, int) else torch.tensor(per_row, device=x.device)
+    rows = torch.arange(b, device=x.device)
+    at = torch.tensor(per_row, device=x.device)
 
     def step(fn):
-        return fn(x, w, kv.clone(), mask, live, kv_s.clone() if kv_s is not None else None, num_heads=H)
+        return fn(x, w, kv.clone(), mask, widx, kv_s.clone() if kv_s is not None else None, num_heads=H)
 
-    def new_kv(out):
-        kv_new = out[1][:, :, live].float()
+    def new_kv(out):  # (L, B, 2D): row i's new K/V at its slot
+        kv_new = out[1][:, rows, at].float()
         if quant == "int8":  # dequantize each side with its own per-token scales
-            s_new = out[2][:, :, :, live]
-            kv_new = torch.cat([kv_new[..., :D] * s_new[:, :, :1], kv_new[..., D:] * s_new[:, :, 1:]], -1)
+            s_new = out[2][:, rows, :, at].transpose(0, 1)  # (L, B, 2)
+            kv_new = torch.cat([kv_new[..., :D] * s_new[..., :1], kv_new[..., D:] * s_new[..., 1:]], -1)
         return kv_new
 
     got, ref = step(ds.fused_decode_step), step(ds.fused_decode_step_plain)
     e_abs, e_rel = float((got[0] - ref[0]).abs().max()), rel_err(got[0], ref[0])
-    assert (e_rel < 0.02) if quant == "int8" else (e_abs < 2e-2), f"step B={x.shape[0]}: abs {e_abs} rel {e_rel}"
+    assert (e_rel < 0.02) if quant == "int8" else (e_abs < 2e-2), f"step B={b}: abs {e_abs} rel {e_rel}"
     kv_abs, kv_rel = float((new_kv(got) - new_kv(ref)).abs().max()), rel_err(new_kv(got), new_kv(ref))
-    assert (kv_rel < 0.02) if quant == "int8" else (kv_abs < 2e-2), f"new K/V B={x.shape[0]}: abs {kv_abs} rel {kv_rel}"
+    assert (kv_rel < 0.02) if quant == "int8" else (kv_abs < 2e-2), f"new K/V B={b}: abs {kv_abs} rel {kv_rel}"
+    kept = torch.ones((b, t), dtype=torch.bool, device=x.device)
+    kept[rows, at] = False
+    assert torch.equal(got[1][:, kept], kv[:, kept]), f"step B={b} wrote outside its slots {per_row}"
+    if quant == "int8":
+        assert torch.equal(got[2].transpose(2, 3)[:, kept], kv_s.transpose(2, 3)[:, kept]), "scales outside the slots"
     return e_abs, e_rel
 
 
@@ -270,162 +285,52 @@ def step_cases(w, quant: str, b: int, g: torch.Generator, live: int = LIVE, t_pa
     return out
 
 
-def k1_case(quant: str, b: int, g: torch.Generator) -> dict:
-    """step_cases at full width on S1Config() weights made from seed 0."""
-    torch.manual_seed(0)
-    state = T2SDecoder(S1Config()).state_dict()
-    w = {k: v.to("cuda") for k, v in ds.stack_weights_from_params(state, L, quant=quant).items()}
-    return step_cases(w, quant, b, g)
+ROW_SLOTS = (LIVE, 201, LIVE - 1, 38)  # rows at different steps: row i writes at ROW_SLOTS[i]
 
 
-def _cache(kv_f: torch.Tensor, quant: str):
-    """One layer's float K||V (B, T, 2D) as the cache of the given mode."""
-    if quant != "int8":
-        return kv_f.to(torch.bfloat16), None
-    kv, kv_s = ds.quantize_kv_cache(kv_f[None])
-    return kv[0], kv_s[0]
-
-
-def random_attn_inputs(quant: str, b: int, g: torch.Generator):
-    """One layer at the random weights' regime: scores of std ~0.25, so the
-    softmax over the live prefix is nearly uniform; a hole in row 0."""
-    dev = torch.device("cuda")
-    qkv = torch.randn((b, 3 * D), generator=g, device=dev) * 0.5
-    kv, kv_s = _cache(torch.randn((b, T_PAD, 2 * D), generator=g, device=dev) * 0.5, quant)
-    mask = torch.zeros((b, T_PAD), device=dev)
-    mask[:, :LIVE] = 1.0
-    mask[0, 5:37] = 0.0
-    return qkv, kv, kv_s, mask
-
-
-def peaked_attn_inputs(quant: str, b: int, g: torch.Generator):
-    """One layer with a peaked softmax. Per (row, head) the query has norm 4;
-    20 keys inside a masked hole (slots 10..29; slots 5..36 are masked in
-    every row) score ~9.9 and carry V = +2, so they would take nearly all the
-    weight if the mask were ignored; 3 live keys and the fresh key score ~7.1
-    against a background of std ~0.35, and the fresh V is -2, so the fresh
-    token carries about a fifth of the weight."""
-    dev = torch.device("cuda")
-    qkv = torch.randn((b, 3 * D), generator=g, device=dev) * 0.5
-    u = qkv[:, :D].reshape(b, H, D // H)
-    u = (u / u.norm(dim=-1, keepdim=True)).reshape(b, 1, D)
-    kv_f = torch.randn((b, T_PAD, 2 * D), generator=g, device=dev) * 0.5
-    kv_f[:, 10:30, :D] = 14.0 * u
-    kv_f[:, 10:30, D:] = 2.0
-    for t in (100, 300, 600):
-        kv_f[:, t : t + 1, :D] = 10.0 * u
-        kv_f[:, t : t + 1, D:] = torch.randn((b, 1, D), generator=g, device=dev)
-    qkv[:, :D] = 4.0 * u[:, 0]
-    qkv[:, D : 2 * D] = 10.0 * u[:, 0]
-    qkv[:, 2 * D :] = -2.0
-    mask = torch.zeros((b, T_PAD), device=dev)
-    mask[:, :LIVE] = 1.0
-    mask[:, 5:37] = 0.0
-    return (qkv, *_cache(kv_f, quant), mask)
-
-
-def attn_cases(quant: str, b: int, g: torch.Generator) -> dict:
-    """decode_attn held against its twin on the random and the peaked inputs.
-    bf16: max abs error within 1% of the output's max (probabilities round to
-    bf16 per split here and once in the twin, 0.2% of a term at most). int8:
-    mean relative error < 0.02, the JAX tests' bar (the probability scale is
-    per split here, per VMEM chunk on the TPU)."""
-    out = {}
-    for case, make in (("random", random_attn_inputs), ("peaked", peaked_attn_inputs)):
-        qkv, kv, kv_s, mask = make(quant, b, g)
-        got = ds.decode_attn(qkv, kv, kv_s, mask, LIVE, H)
-        ref = ds.decode_attn_plain(qkv, kv, kv_s, mask, LIVE, H)
-        e_abs, e_rel, top = float((got - ref).abs().max()), rel_err(got, ref), float(ref.abs().max())
-        ok = (e_rel < 0.02) if quant == "int8" else (e_abs <= 1e-2 * top)
-        out[case] = {"max_abs_err": e_abs, "rel_err": e_rel, "out_max": top, "held": ok}
-    assert all(c["held"] for c in out.values()), f"decode_attn {quant} B={b} disagrees with its twin: {out}"
+def rowwise_cases(w, quant: str, b: int, g: torch.Generator) -> dict:
+    """The step with one write slot a row (a (B,) write_idx, rows at
+    different steps, as continuous batching runs them), held as hold_step
+    holds it: row i live over [0, ROW_SLOTS[i]) under its mask, on random
+    inputs and on peaked_step_inputs (every row's layer-0 attention peaked
+    on its fresh token); each row's new K/V at its own slot, every other
+    slot and scale unchanged."""
+    slots = list(ROW_SLOTS[:b])
+    out = {"slots": slots}
+    for case in ("random", "peaked"):
+        kv, kv_s, mask, x = (step_inputs(quant, b, g) if case == "random" else peaked_step_inputs(w, quant, b, g))
+        mask *= (torch.arange(T_PAD, device=mask.device)[None] < torch.tensor(slots, device=mask.device)[:, None])
+        e_abs, e_rel = hold_step(w, quant, kv, kv_s, mask, x, slots)
+        out[case] = {"max_abs_err": e_abs, "rel_err": e_rel}
     return out
 
 
+def _s1_weights(quant: str) -> dict:
+    """The stacked S1Config() weights made from seed 0, on the card."""
+    torch.manual_seed(0)
+    state = T2SDecoder(S1Config()).state_dict()
+    return {k: v.to("cuda") for k, v in ds.stack_weights_from_params(state, L, quant=quant).items()}
+
+
+def k1_case(quant: str, b: int, g: torch.Generator) -> dict:
+    """step_cases at full width on S1Config() weights made from seed 0."""
+    return step_cases(_s1_weights(quant), quant, b, g)
+
+
+def k1_rows_case(quant: str, b: int, g: torch.Generator) -> dict:
+    """rowwise_cases at full width on S1Config() weights made from seed 0."""
+    return rowwise_cases(_s1_weights(quant), quant, b, g)
+
+
 def kernel_phase(s1_state: dict, quant: str, b: int, seed: int) -> dict:
-    """Every K1 kernel at main-path shapes, held against its twin and timed.
-    Times are per layer's worth of launches (proj: the 4 projections;
-    decode_attn: 1; add_layernorm: 2) and per 24-layer step."""
+    """K1's whole step at main-path shapes, held against its twin
+    (step_cases) and timed, per 24-layer step."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     w = ds.stack_weights_from_params(s1_state, L, quant=quant)
     w = {k: v.to(dev) for k, v in w.items()}
-    # the part kernels take (K, N) matrices; the whole step the fragment-ordered K-major stack
-    wkn = {k: ds.from_fragment_order(w[k]).transpose(1, 2).contiguous() for k in ds.MATS}
     kv, kv_s, mask, x = step_inputs(quant, b, g)
-    xs = {n: torch.randn((b, k), generator=g, device=dev) for n, k in (("qkv", D), ("wo", D), ("fc1", D), ("fc2", F))}
-    qkv = torch.randn((b, 3 * D), generator=g, device=dev) * 0.5
-    y = torch.randn((b, D), generator=g, device=dev)
-    sc = (lambda k, i: w[f"{k}_s"][i]) if quant == "int8" else (lambda k, i: None)
-    wname = {"qkv": "wqkv", "wo": "wo", "fc1": "fc1", "fc2": "fc2"}
-    bname = {"qkv": "bqkv", "wo": "bo", "fc1": "b1", "fc2": "b2"}
     kind = "int8" if quant == "int8" else "bf16"
-    rows = {}
-
-    # proj -------------------------------------------------------------
-    def projs(fn, i):
-        li = i % L
-        return [fn(xs[n], wkn[wname[n]][li], w[bname[n]][li], sc(wname[n], li), relu=(n == "fc1")) for n in xs]
-
-    err = e_abs = 0.0
-    for li in (0, L - 1):
-        for got, ref in zip(projs(ds.proj, li), projs(ds.proj_plain, li)):
-            e_abs = max(e_abs, float((got - ref).abs().max()))
-            err = max(err, float((got - ref).abs().max() / (ref.abs().max() + 1e-12)))
-    # the same products summed in another order (f32) or the same int32 sums
-    assert err < 1e-3, f"proj disagrees with its twin: {err}"
-    nb = sum(w[wname[n]][0].numel() * w[wname[n]].element_size() + w[bname[n]][0].numel() * 4 for n in xs)
-    nb += sum(w[f"{wname[n]}_s"][0].numel() * 4 for n in xs) if quant == "int8" else 0
-    nb += sum(b * (xs[n].shape[1] + w[wname[n]].shape[-1]) * 4 for n in xs)
-    ops = sum(2 * b * w[wname[n]][0].numel() for n in xs)
-    lib = None
-    if quant == "bf16":
-        xb = {n: v.to(torch.bfloat16) for n, v in xs.items()}
-        lib = timings("library_", lambda i: [torch.matmul(xb[n], wkn[wname[n]][i % L]) for n in xs], 48)
-    rows["proj"] = dict(max_abs_err=e_abs, max_rel_err=err, **timings("", lambda i: projs(ds.proj, i), 48),
-                        **timings("plain_", lambda i: projs(ds.proj_plain, i), 12), **(lib or {"library_ms": None}),
-                        bytes=nb, ops=ops, kind=kind)
-
-    # decode_attn ----------------------------------------------------------
-    def attn(fn, i):
-        li = i % L
-        return fn(qkv, kv[li], kv_s[li] if kv_s is not None else None, mask, LIVE, H)
-
-    held = attn_cases(quant, b, g)
-    elt = kv.element_size()
-    nb = b * LIVE * 2 * D * elt + b * LIVE * 4 + b * 3 * D * 4 + b * D * 4
-    nb += b * 2 * LIVE * 4 if quant == "int8" else 0
-    ops = 4 * b * H * LIVE * (D // H)
-    lib = None
-    if quant == "bf16":
-        q4 = qkv[:, :D].reshape(b, H, 1, D // H).to(torch.bfloat16)
-        kvv = [kv[li, :, :LIVE].view(b, LIVE, 2, H, D // H) for li in range(L)]
-        am = (mask[:, None, None, :LIVE] > 0)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib = timings("library_", lambda i: sdpa(q4, kvv[i % L][:, :, 0].transpose(1, 2), kvv[i % L][:, :, 1].transpose(1, 2),
-                                     attn_mask=am), 48)
-    rows["decode_attn"] = dict(max_abs_err=max(c["max_abs_err"] for c in held.values()), held=held,
-                               **timings("", lambda i: attn(ds.decode_attn, i), 48),
-                               **timings("plain_", lambda i: attn(ds.decode_attn_plain, i), 12),
-                               **(lib or {"library_ms": None}),
-                               bytes=nb, ops=ops, kind=kind)
-
-    # add_layernorm ----------------------------------------------------------
-    def lns(fn, i):
-        li = i % L
-        return [fn(x, y, w["n1s"][li], w["n1b"][li]), fn(x, y, w["n2s"][li], w["n2b"][li])]
-
-    e = max(float((a - r).abs().max()) for a, r in zip(lns(ds.add_layernorm, 0), lns(ds.add_layernorm_plain, 0)))
-    assert e < 1e-4, f"add_layernorm disagrees with its twin: {e}"
-    layer_norm = torch.nn.functional.layer_norm
-    rows["add_layernorm"] = dict(
-        max_abs_err=e, **timings("", lambda i: lns(ds.add_layernorm, i), 48),
-        **timings("plain_", lambda i: lns(ds.add_layernorm_plain, i), 48),
-        **timings("library_", lambda i: [layer_norm(x + y, (D,), w[s][i % L][0], w[t][i % L][0], 1e-5)
-                                         for s, t in (("n1s", "n1b"), ("n2s", "n2b"))], 48),
-        bytes=2 * (3 * b * D * 4 + 2 * D * 4), ops=2 * 8 * b * D, kind="f32",
-    )
-
     # the whole step -----------------------------------------------------------
     held = step_cases(w, quant, b, g)
     kv_t, s_t = kv.clone(), (kv_s.clone() if kv_s is not None else None)
@@ -437,29 +342,27 @@ def kernel_phase(s1_state: dict, quant: str, b: int, seed: int) -> dict:
     # the step's ms: queued CUDA events, since late in this long process the
     # profiler now and then reads the step short (profiler_ms kept beside it)
     prof = timings("profiler_", run_step(ds.fused_decode_step), 10)
-    rows["fused_decode_step"] = dict(
+    step = dict(
         max_abs_err=max(held[c]["max_abs_err"] for c in ("random", "peaked")),
         rel_err=max(held[c]["rel_err"] for c in ("random", "peaked")), held=held,
         ms=queued_ms(run_step(ds.fused_decode_step), 20), timer="queued_events", wall_ms=prof["profiler_wall_ms"],
         profiler_ms=prof["profiler_ms"], profiler_timer=prof["profiler_timer"],
         **timings("plain_", run_step(ds.fused_decode_step_plain), 3), library_ms=None,
-        bytes=ds.step_bytes(w, kv, LIVE), ops=ops, kind=kind,
     )
-    for r in rows.values():
-        r["bound_ms"], r["bound_by"] = bound_ms(r.pop("bytes"), r.pop("ops"), r.pop("kind"))
-    step = rows["fused_decode_step"]
+    step["bound_ms"], step["bound_by"] = bound_ms(ds.step_bytes(w, kv, LIVE), ops, kind)
     assert step["ms"] >= step["bound_ms"], f"the step timed below its bound: {step}"
     if b == 1:
         emit({"phase": "profile", "mode": f"{quant}/{quant}", "B": b, **profile_steps(run_step(ds.fused_decode_step))})
-    return rows
+    return step
 
 
 def width_phase(s1_state: dict, seed: int) -> dict:
     """The whole step at every other batch width the path may run (segment
     batches of 2..7 rows), held against the twin on random and peaked
-    inputs (step_cases), in both modes; and at B = 2 on the longest live
+    inputs (step_cases), in both modes; at B = 2 on the longest live
     prefix the kernel takes (all STEP_MAX_SPLITS attention splits of a
-    (row, head): 8192 slots with bf16 KV, 16384 with int8)."""
+    (row, head): 8192 slots with bf16 KV, 16384 with int8); and at B = 2
+    and 4 with one write slot a row (rowwise_cases)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     out = {}
@@ -472,6 +375,8 @@ def width_phase(s1_state: dict, seed: int) -> dict:
         reach = ds.STEP_MAX_SPLITS * 32 * (4 if quant == "int8" else 2)
         assert ds.step_splits(reach, quant == "int8")[1] == ds.STEP_MAX_SPLITS
         out[f"{quant}/{quant} live {reach}"] = step_cases(w, quant, 2, g, live=reach, t_pad=reach + 64)
+        for b in (2, 4):
+            out[f"{quant}/{quant} rows B={b}"] = rowwise_cases(w, quant, b, g)
         torch.cuda.empty_cache()
     return out
 
@@ -545,14 +450,9 @@ class counted_steps:
         ds.fused_decode_step = self.saved
 
 
-S1_PARTS = ("proj", "decode_attn", "add_layernorm")
-
-
 def check_s1_launches(launches: dict, steps: int) -> dict:
-    """One whole-step launch for every S1 step of a path, and no launch of
-    K1's part kernels."""
+    """One whole-step launch for every S1 step of a path."""
     assert steps > 0 and launches["fused_decode_step"] == steps, (launches, steps)
-    assert all(launches[k] == 0 for k in S1_PARTS), launches
     return {"s1_steps": steps}
 
 
@@ -1064,6 +964,8 @@ SNAKE_PER_CALL = V3_SNAKES_PER_STAGE * len(V3_STAGES) + 1  # 109 launches per Bi
 # upsampled samples, two snakes (a u, sin, square, one FMA), 12 FMAs for y
 SNAKE_OPS = 2 * 6 * 2 + 2 * 5 + 12 * 2
 SNAKE_SRC = "gpt_sovits_tpu_torch/csrc/snake_aa.cu"
+# rows off a 16-byte boundary (T % 8 != 0), and T shorter than a thread's 8 outputs
+SNAKE_RAGGED = ((768, 8897), (24, 569347), (768, 1), (768, 3), (768, 7), (768, 13))
 SNAKE_REPLACES = "gpt_sovits_tpu/ops/pallas/snake_aa.py:428 (K6 snake_aa_fused; also :301, K7 snake_aa_folded)"
 K4_REPLACES = "gpt_sovits_tpu/ops/pallas/qmatmul.py:346"
 K4_T, K4_REAL = 2560, 2500  # a DiT chunk past MAX_INT8_T: T 2560, 2500 real frames
@@ -1075,13 +977,19 @@ def _snake_misses(got, ref, rtol):
     return (got - ref).abs() - (2e-5 + rtol * ref.abs())
 
 
-def snake_case(c: int, t: int, dtype, g: torch.Generator) -> dict:
-    """K6 at one stage shape, held elementwise within 2e-5 + rtol |ref| of
-    its twin over the whole row and over its first and last 8 samples on
+def snake_case(c: int, t: int, dtype, g: torch.Generator, timed: bool = True, slow: bool = False) -> dict:
+    """K6 at one (1, C, T) shape, held elementwise within 2e-5 + rtol |ref|
+    of its twin over the whole row and over its first and last 8 samples on
     their own: x of amplitude 5-20 (|a u| in the tens), alpha and beta that
-    differ per channel, T not a multiple of the kernel's 1024-sample tile. On the twin, the share of outputs at which a channel
-    fault (the next channel's parameters) or an edge fault (the interior
-    formula carried on through x, first 3 samples) would miss the bar."""
+    differ per channel. With `slow`, the kernel is given a reduction range
+    of 0, so that every warp takes its path for |a u| beyond the range
+    (chunk_any_z: sinf), which no input of well-conditioned size reaches
+    otherwise. Where T is not a multiple of 8 (bf16) or 4 (f32),
+    rows start off a 16-byte boundary and take the kernel's scalar head and
+    tail; T below 8 is shorter than a thread's chunk. On the twin, the share
+    of outputs at which a channel fault (the next channel's parameters) or,
+    from T = 16, an edge fault (the interior formula carried on through x,
+    first 3 samples) would miss the bar. Timed where `timed`."""
     from gpt_sovits_tpu_torch.ops import snake_aa as sa
 
     dev = torch.device("cuda")
@@ -1092,7 +1000,14 @@ def snake_case(c: int, t: int, dtype, g: torch.Generator) -> dict:
     # rtol 1e-4 in f32 (the JAX tests' bar); one bf16 step (2^-7) in bf16, where
     # both sides round an f32 result that differs in its last bits
     rtol = 1e-4 if dtype == torch.float32 else 2.0**-7
-    got, ref = sa.snake_aa(x, alpha, beta), sa.snake_aa_plain(x, alpha, beta)
+    consts = sa._CONSTS
+    if slow:
+        sa._CONSTS = (type(consts))(*consts)
+        sa._CONSTS[sa.TAPS + 4] = 0.0  # the reduction's |z| limit (ops/snake_aa.py _consts)
+    try:
+        got, ref = sa.snake_aa(x, alpha, beta), sa.snake_aa_plain(x, alpha, beta)
+    finally:
+        sa._CONSTS = consts
     miss = _snake_misses(got, ref, rtol)
     err = (got.float() - ref.float()).abs()
     held = {"max_abs_err": float(err.max()), "out_max": float(ref.float().abs().max()),
@@ -1105,11 +1020,14 @@ def snake_case(c: int, t: int, dtype, g: torch.Generator) -> dict:
     held["channel_fault_miss_share"] = float((_snake_misses(shifted, ref32, rtol) > 0).float().mean())
     through_x = sa.snake_aa_plain(torch.nn.functional.pad(x32, (8, 8), mode="replicate"), alpha, beta)[..., 8:-8]
     held["edge_fault_miss_share"] = float((_snake_misses(through_x, ref32, rtol)[..., :3] > 0).float().mean())
-    assert held["channel_fault_miss_share"] > 0.01 and held["edge_fault_miss_share"] > 0, held
-    bound, by = bound_ms(2 * x.numel() * x.element_size() + 8 * c, SNAKE_OPS * x.numel(), "f32")
-    return dict(held=held, **timings("", lambda i: sa.snake_aa(x, alpha, beta), 20),
-                **timings("plain_", lambda i: sa.snake_aa_plain(x, alpha, beta), 3),
-                library_ms=None, bound_ms=bound, bound_by=by, config=f"(1, {c}, {t}) {str(dtype)[6:]}")
+    assert held["channel_fault_miss_share"] > 0.01 and (t < 16 or held["edge_fault_miss_share"] > 0), held
+    out = dict(held=held, config=f"(1, {c}, {t}) {str(dtype)[6:]}" + (", every warp on its sinf path" if slow else ""))
+    if timed:
+        bound, by = bound_ms(2 * x.numel() * x.element_size() + 8 * c, SNAKE_OPS * x.numel(), "f32")
+        out.update(**timings("", lambda i: sa.snake_aa(x, alpha, beta), 20),
+                   **timings("plain_", lambda i: sa.snake_aa_plain(x, alpha, beta), 3),
+                   library_ms=None, bound_ms=bound, bound_by=by)
+    return out
 
 
 def k4_call(b: int, g: torch.Generator):
@@ -1163,15 +1081,18 @@ def k4_case(b: int, g: torch.Generator) -> dict:
 
 def v3_kernel_phase(seed: int) -> dict:
     """K6 at every BigVGAN stage shape of a 2224-frame mel in bf16 and f32,
-    K4 at B = 1 and 4; one line each. Returns the rows by (name, config)."""
+    timed, and at SNAKE_RAGGED's shapes and at (768, 8897) on the kernel's
+    sinf path, held only; K4 at B = 1 and 4; one
+    line each. Returns the rows by (name, config)."""
     g = torch.Generator(device="cuda").manual_seed(seed + 30)
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for c, t in V3_STAGES:
-            r = snake_case(c, t, dtype, g)
+        for c, t in V3_STAGES + SNAKE_RAGGED:
+            r = snake_case(c, t, dtype, g, timed=(c, t) in V3_STAGES)
             emit({"phase": "v3_kernels", "kernel": "snake_aa", **r})
-            rows[("snake_aa", dtype, c)] = r
+            rows[("snake_aa", dtype, c, t)] = r
             torch.cuda.empty_cache()
+        emit({"phase": "v3_kernels", "kernel": "snake_aa", **snake_case(768, 8897, dtype, g, timed=False, slow=True)})
     for b in (1, 4):
         r = k4_case(b, g)
         emit({"phase": "v3_kernels", "kernel": "qdense_out_int8", "B": b, **r})
@@ -1420,11 +1341,15 @@ def stream_v2_phase(pipe, seed: int) -> dict:
 
 def kernel_times(seed: int) -> dict:
     """Device ms of K2 (one DiT block's three calls), K4, K5 and K3 at the
-    main path's shapes, B = 1 and 4, with body_ms and helper_ms, and of K1's
-    step at B = 1 in int8 and bf16. Only the wrappers' public functions are
-    called, so the same code times another tree's kernels (compare_trees)."""
+    main path's shapes, B = 1 and 4, with body_ms and helper_ms; of K1's
+    step at B = 1 in int8 and bf16; and of K6 for one BigVGAN call on a
+    2224-frame mel in bf16: each stage shape's time (V3_STAGES) times its
+    launches, 18 a stage and one more at the last (activation_post). Only
+    the wrappers' public functions are called, with their default options,
+    so the same code times another tree's kernels (compare_trees)."""
     from gpt_sovits_tpu_torch.ops import qflash as qf
     from gpt_sovits_tpu_torch.ops import qmatmul as qm
+    from gpt_sovits_tpu_torch.ops import snake_aa as sa
 
     g = torch.Generator(device="cuda").manual_seed(seed + 60)
     sm = 1.0 / np.sqrt(V4_DH)
@@ -1454,6 +1379,14 @@ def kernel_times(seed: int) -> dict:
         out[f"fused_decode_step {quant} B=1"] = {**timings("", step, 10), "queued_ms": queued_ms(step, 20)}
         del w, kv_, kv_s
         torch.cuda.empty_cache()
+    stages = {}
+    for i, (c, t) in enumerate(V3_STAGES):
+        x = (torch.randn((1, c, t), generator=g, device="cuda") * 10.0).to(torch.bfloat16)
+        alpha, beta = (0.5 * torch.randn(c, generator=g, device="cuda") for _ in range(2))
+        n = V3_SNAKES_PER_STAGE + (i == len(V3_STAGES) - 1)
+        stages[f"({c}, {t})"] = {"launches": n, **timings("", lambda j: sa.snake_aa(x, alpha, beta), 20)}
+    out["snake_aa BigVGAN call"] = {
+        f: sum(r[f] * r["launches"] for r in stages.values()) for f in ("ms", "wall_ms")} | {"stages": stages}
     return out
 
 
@@ -1489,7 +1422,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent", default=None,
-                    help="also time K1-K5 on the kernels of an earlier tree unpacked here, in turns with this "
+                    help="also time K1-K6 on the kernels of an earlier tree unpacked here, in turns with this "
                          "tree's (compare_trees)")
     args = ap.parse_args(argv)
 
@@ -1509,10 +1442,9 @@ def main(argv=None) -> int:
     table = {}
     for quant in ("bf16", "int8"):
         for b in (1, 8):
-            rows = kernel_phase(s1_state, quant, b, args.seed)
-            for name, r in rows.items():
-                emit({"phase": "kernels", "kernel": name, "mode": f"{quant}/{quant}", "B": b, **r})
-            table[(quant, b)] = rows
+            table[(quant, b)] = kernel_phase(s1_state, quant, b, args.seed)
+            emit({"phase": "kernels", "kernel": "fused_decode_step", "mode": f"{quant}/{quant}", "B": b,
+                  **table[(quant, b)]})
     emit({"phase": "widths", "B": list(range(2, ds.MAX_ROWS)), **width_phase(s1_state, args.seed)})
     del s1_state
     torch.cuda.empty_cache()
@@ -1574,21 +1506,16 @@ def main(argv=None) -> int:
     if args.parent is not None:
         emit({"phase": "compare_trees", **compare_trees(args.parent, args.seed)})
 
-    main_rows = table[("int8", 1)]
-    kernels = []
-    for name, r in main_rows.items():
-        kernels.append({
-            "name": name, "route": "cuda", "source": KERNEL_SRC, "replaces": REPLACES,
-            "launches": launches[name], "launches_v4": launches4[name], "launches_v3": launches3[name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "timer": r["timer"],
-            "config": "int8 weights + int8 KV, B=1, live 745 of 1024; fused_decode_step (one launch a step, the "
-                      "S1 path's only K1 kernel) per 24-layer step; proj/add_layernorm/decode_attn, the parts "
-                      "held on their own, per layer; launches over the v2 (launches), v4 and v3 paths",
-        })
-    lib_bf16 = table[("bf16", 1)]
-    for k in kernels:  # K1's parts: the bf16 mode's library call (torch.matmul, SDPA, layer_norm) at B=1
-        k["library_ms_bf16"] = lib_bf16[k["name"]]["library_ms"]
+    r = table[("int8", 1)]
+    name = "fused_decode_step"
+    kernels = [{
+        "name": name, "route": "cuda", "source": KERNEL_SRC, "replaces": REPLACES,
+        "launches": launches[name], "launches_v4": launches4[name], "launches_v3": launches3[name],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"], "timer": r["timer"],
+        "config": "int8 weights + int8 KV, B=1, live 745 of 1024, one launch a 24-layer step; launches over the "
+                  "v2 (launches), v4 and v3 paths",
+    }]
     helpers = {"qdense_int8": "row_quant", "qkv_rope_int8": "row_quant", "flash_attn_int8": "v_quant"}
     for name in ("qdense_int8", "qkv_rope_int8", "flash_attn_int8"):
         r = v4_rows[(name, 4)]
@@ -1614,7 +1541,7 @@ def main(argv=None) -> int:
     kernels.append({
         "name": "snake_aa", "route": "cuda", "source": SNAKE_SRC, "replaces": SNAKE_REPLACES,
         "launches": launches3["snake_aa"],
-        "max_abs_err": max(v3_rows[("snake_aa", torch.bfloat16, c)]["held"]["max_abs_err"] for c, _ in V3_STAGES),
+        "max_abs_err": max(v3_rows[("snake_aa", torch.bfloat16, c, t)]["held"]["max_abs_err"] for c, t in V3_STAGES),
         **{k: sn[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "timer")}, "library_ms": None,
         "config": "one BigVGAN call on a 2224-frame mel in bf16 (snake_in_call): ms the device time of its 109 "
                   "launches, plain_ms that of the twins in their place; max_abs_err over the bf16 stage shapes "

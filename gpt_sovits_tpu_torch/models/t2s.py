@@ -87,16 +87,25 @@ class TransformerLayer(nn.Module):
         x = self.norm1(x + self.self_attn.out_proj(out))
         return self._mlp(x), k, v
 
-    def decode(self, x, k_cache, v_cache, valid_mask, write_idx: int):
-        """Single-token step. x (B,1,D); caches (B,T,H,Dh), written in place
-        at write_idx; valid_mask (B,T) bool including the written slot."""
+    def decode(self, x, k_cache, v_cache, valid_mask, write_idx):
+        """Single-token step. x (B,1,D); caches (B,T,H,Dh), written in place;
+        valid_mask (B,T) bool including the written slot. write_idx: an int,
+        every row's slot (generate), or a (B,) integer tensor or sequence, row
+        i's slot write_idx[i] (rows at independent steps, as continuous
+        batching runs them)."""
         b, _, d = x.shape
         h = self.num_heads
         dh = d // h
         qkv = F.linear(x, self.self_attn.in_proj_weight, self.self_attn.in_proj_bias)
         q, k_new, v_new = qkv.split(d, dim=-1)
-        k_cache[:, write_idx] = k_new.reshape(b, h, dh)
-        v_cache[:, write_idx] = v_new.reshape(b, h, dh)
+        if not isinstance(write_idx, int) and torch.as_tensor(write_idx).ndim == 1:
+            rows = torch.arange(b, device=k_cache.device)
+            idx = torch.as_tensor(write_idx, device=k_cache.device)
+            k_cache[rows, idx] = k_new.reshape(b, h, dh)
+            v_cache[rows, idx] = v_new.reshape(b, h, dh)
+        else:
+            k_cache[:, write_idx] = k_new.reshape(b, h, dh)
+            v_cache[:, write_idx] = v_new.reshape(b, h, dh)
         scale = 1.0 / np.sqrt(dh)
         scores = torch.einsum("bhd,bkhd->bhk", q.reshape(b, h, dh), k_cache) * scale
         scores = scores.masked_fill(~valid_mask[:, None, :], float("-inf"))
@@ -169,8 +178,9 @@ class T2SDecoder(nn.Module):
             vs.append(v)
         return self.ar_predict_layer(x[:, -1]), torch.stack(ks), torch.stack(vs)
 
-    def decode_step(self, tok_emb, k_caches, v_caches, valid_mask, write_idx: int):
-        """One step across all layers; caches (L,B,T,H,Dh) updated in place."""
+    def decode_step(self, tok_emb, k_caches, v_caches, valid_mask, write_idx):
+        """One step across all layers; caches (L,B,T,H,Dh) updated in place
+        at write_idx, an int or one slot a row (TransformerLayer.decode)."""
         x = tok_emb
         for i, layer in enumerate(self.h.layers):
             x = layer.decode(x, k_caches[i], v_caches[i], valid_mask, write_idx)

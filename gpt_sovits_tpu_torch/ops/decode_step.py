@@ -7,20 +7,23 @@ tensors one persistent kernel of ``csrc/decode_step.cu`` runs the whole
 step in one launch (see the note at the top of that file for what bounds it
 and how); on CPU tensors the step runs the plain PyTorch twins.
 ``fused_decode_step_plain`` runs the whole step on the twins on any device,
-which is what the kernel is held against. Kernels of one projection
-(``proj``), attention (``decode_attn``) or LayerNorm (``add_layernorm``)
-each stay callable with their twins, as parts; the step launches none.
+which is what the kernel is held against.
 
 Layout (as in the JAX package, but for the weights): kv_cache (L, B, T, 2D)
 with K in [0, D) and V in [D, 2D); kv_scales (L, B, 2, T) f32 in int8-KV
 mode; mask (B, T) f32, 1 = attendable, EXCLUDING the slot being written (the
-step attends to the new token's own K/V itself). Stacked weight matrices are
+step attends to the new token's own K/V itself). ``write_idx`` is one slot
+for every row (an int, as `generate` passes), or one slot a row (a (B,)
+integer tensor or sequence, as continuous batching passes): row i writes its
+new K/V at write_idx[i], and every row attends over [0, max(write_idx))
+under its mask, as the JAX function does (decode_step.py:462-519). Stacked
+weight matrices are
 K-major, (L, Dout, Din) (PyTorch's Linear layout; the JAX package stacks
 (L, Din, Dout)), each 16 rows in the kernel's mma fragment order
 (to_fragment_order), so that a block of the kernel reads its output columns
 as one contiguous block. The step updates kv_cache/kv_scales in place at
-``write_idx`` (the JAX function returns new arrays; in place saves a copy of
-the cache per token) and returns them.
+the rows' slots (the JAX function returns new arrays; in place saves a copy
+of the cache per token) and returns them.
 """
 
 from __future__ import annotations
@@ -35,21 +38,13 @@ from gpt_sovits_tpu_torch.ops import build
 
 NEG = -1e30
 # launch geometry, as csrc/decode_step.cu defines it
-SPLIT = 64  # cache slots per decode_attn split block
-HEAD_DIM = 32  # the only head width decode_attn takes
-ATTN_PART = HEAD_DIM + 2  # per split: context, max, sum
-PROJ_TILE = 64  # output columns per proj block
-PROJ_ITER_ROWS = 128  # W rows a proj block reads per pass
-PROJ_TARGET_BLOCKS = 128  # about one proj block per SM (the H100 has 132)
-MAX_TILES = 1024  # tickets per stream: proj's column tiles, decode_attn's (row, head) pairs
 MAX_ROWS = 8
 STEP_WARPS = 8  # warps of a block of the whole-step kernel, which takes a (row, head) (step::WARPS)
 STEP_MAX_SPLITS = 128  # attention splits a (row, head) of the whole-step kernel (step::MAX_SPLITS)
 STEP_DIMS = (512, 2048, 16)  # the (D, F, heads) the whole-step kernel is built for (S1Config)
 
-# the kernels, in the order gsv_launch_counts reports their launches
-# (fused_decode_step: the whole-step kernel)
-KERNELS = ("proj", "decode_attn", "add_layernorm", "fused_decode_step")
+# the kernel, as gsv_launch_counts reports its launches
+KERNELS = ("fused_decode_step",)
 
 
 def launch_counts() -> dict:
@@ -163,7 +158,7 @@ def quantize_kv_cache(kv_cache: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
-# plain twins of the three kernels
+# plain twins of the step's parts
 # ---------------------------------------------------------------------------
 
 
@@ -248,14 +243,10 @@ def _lib():
     lib = build.load("decode_step")
     if not getattr(lib, "_gsv_typed", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.gsv_proj.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
-        lib.gsv_decode_attn.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P]
-        lib.gsv_add_layernorm.argtypes = [P, P, P, P, P, I, I, P]
         PP = ctypes.POINTER(P)
         lib.gsv_decode_step.argtypes = [P, P, PP, PP, PP, P, P, P, P, P, P, P, P, P, F,
-                                        I, I, I, I, I, I, I, I, P]
-        for fn in (lib.gsv_proj, lib.gsv_decode_attn, lib.gsv_add_layernorm, lib.gsv_decode_step):
-            fn.restype = ctypes.c_int
+                                        I, I, I, ctypes.POINTER(I), I, I, I, I, P]
+        lib.gsv_decode_step.restype = ctypes.c_int
         lib.gsv_launch_counts.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
         lib.gsv_launch_counts.restype = None
         lib.gsv_reset_launch_counts.argtypes = []
@@ -299,130 +290,8 @@ def _route(t):
     raise ValueError(f"no kernel for device {t.device}")
 
 
-def _proj_splits(k: int, n: int) -> int:
-    """K splits of a proj launch: double them (each chunk keeping at least
-    one block pass of rows) until the grid has about one block per SM."""
-    tiles = n // PROJ_TILE
-    s = 1
-    while tiles * s < PROJ_TARGET_BLOCKS and k % (2 * s) == 0 and k // (2 * s) >= PROJ_ITER_ROWS:
-        s *= 2
-    return s
-
-
-_TICKETS: dict = {}
-
-
-def _tickets(device, stream: int) -> int:
-    """The last-block tickets of proj and decode_attn for one stream: zeroed
-    once, and each launch leaves them zero again (so launches on one stream
-    may share them)."""
-    key = (device, stream)
-    if key not in _TICKETS:
-        _TICKETS[key] = torch.zeros(MAX_TILES, dtype=torch.int32, device=device)
-    return _TICKETS[key].data_ptr()
-
-
-def _check_proj_dims(b: int, n: int):
-    if not 1 <= b <= MAX_ROWS:
-        raise ValueError(f"proj takes 1..{MAX_ROWS} rows, got {b}")
-    if n % PROJ_TILE or n // PROJ_TILE > MAX_TILES:
-        raise ValueError(f"proj needs an output width that is a multiple of {PROJ_TILE}, got {n}")
-
-
-def _check_attn_dims(b: int, d: int, num_heads: int):
-    if d % num_heads or d // num_heads != HEAD_DIM:
-        raise ValueError(f"decode_attn takes a head dim of {HEAD_DIM}")
-    if b * num_heads > MAX_TILES:
-        raise ValueError(f"decode_attn takes at most {MAX_TILES} (row, head) pairs")
-
-
-def _attn_splits(n_valid: int) -> int:
-    return max(1, -(-n_valid // SPLIT))
-
-
 def _attn_scale(d: int, num_heads: int) -> float:
     return float(1.0 / np.sqrt(d // num_heads))
-
-
-def proj(x, w, bias, w_scale=None, relu: bool = False):
-    """Skinny GEMM (B <= 8 rows) with bias and optional ReLU; bf16 or W8A8."""
-    if not _route(x):
-        return proj_plain(x, w, bias, w_scale, relu)
-    b, k = x.shape
-    n = w.shape[-1]
-    dev = x.device
-    _check("x", x, torch.float32, (b, k), dev)
-    _check("w", w, (torch.bfloat16, torch.int8), (k, n), dev)
-    int8 = w.dtype == torch.int8
-    _check("bias", bias, torch.float32, None, dev)
-    if bias.numel() != n:
-        raise ValueError("bias: wrong size")
-    if int8:
-        if w_scale is None:
-            raise ValueError("int8 weights need w_scale")
-        _check("w_scale", w_scale, torch.float32, None, dev)
-        if w_scale.numel() != n:
-            raise ValueError("w_scale: wrong size")
-    _check_proj_dims(b, n)
-    y = torch.empty((b, n), dtype=torch.float32, device=dev)
-    part = torch.empty(_proj_splits(k, n) * b * n, dtype=torch.float32, device=dev)
-    stream = _stream(x)
-    rc = _lib().gsv_proj(
-        x.data_ptr(), w.data_ptr(), w_scale.data_ptr() if int8 else None, bias.data_ptr(), y.data_ptr(),
-        part.data_ptr(), _tickets(dev, stream), MAX_TILES, b, k, n, _proj_splits(k, n), int(int8), int(relu), stream,
-    )
-    _raise(rc, "proj")
-    return y
-
-
-def decode_attn(qkv, kv, kv_scales, mask, n_valid: int, num_heads: int):
-    """Flash-decoding attention of one layer, one launch (the last split
-    block of each (row, head) merges the splits)."""
-    if not _route(qkv):
-        return decode_attn_plain(qkv, kv, kv_scales, mask, n_valid, num_heads)
-    b, d3 = qkv.shape
-    d = d3 // 3
-    t = kv.shape[1]
-    dev = qkv.device
-    _check("qkv", qkv, torch.float32, (b, d3), dev)
-    _check("kv", kv, (torch.bfloat16, torch.int8), (b, t, 2 * d), dev)
-    _check("mask", mask, torch.float32, (b, t), dev)
-    int8 = kv.dtype == torch.int8
-    if int8:
-        _check("kv_scales", kv_scales, torch.float32, (b, 2, t), dev)
-    _check_attn_dims(b, d, num_heads)
-    if not 0 <= n_valid <= t:
-        raise ValueError(f"n_valid {n_valid} outside [0, {t}]")
-    part = torch.empty((b, num_heads, _attn_splits(n_valid), ATTN_PART), dtype=torch.float32, device=dev)
-    out = torch.empty((b, d), dtype=torch.float32, device=dev)
-    stream = _stream(qkv)
-    rc = _lib().gsv_decode_attn(
-        qkv.data_ptr(), kv.data_ptr(), kv_scales.data_ptr() if int8 else None, mask.data_ptr(), part.data_ptr(),
-        out.data_ptr(), _tickets(dev, stream), MAX_TILES, b, num_heads, d, t, int(n_valid), _attn_splits(n_valid),
-        _attn_scale(d, num_heads), int(int8), stream,
-    )
-    _raise(rc, "decode_attn")
-    return out
-
-
-def add_layernorm(x, y, scale, bias):
-    """LN(x + y) * scale + bias, one block per row."""
-    if not _route(x):
-        return add_layernorm_plain(x, y, scale, bias)
-    b, d = x.shape
-    dev = x.device
-    _check("x", x, torch.float32, (b, d), dev)
-    _check("y", y, torch.float32, (b, d), dev)
-    _check("scale", scale, torch.float32, None, dev)
-    _check("bias", bias, torch.float32, None, dev)
-    if scale.numel() != d or bias.numel() != d:
-        raise ValueError("scale/bias: wrong size")
-    out = torch.empty_like(x)
-    rc = _lib().gsv_add_layernorm(
-        x.data_ptr(), y.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), b, d, _stream(x)
-    )
-    _raise(rc, "add_layernorm")
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -430,34 +299,59 @@ def add_layernorm(x, y, scale, bias):
 # ---------------------------------------------------------------------------
 
 
-def _check_step(x, weights, kv_cache, mask, write_idx, kv_scales):
+def _slots(write_idx, b: int, t: int) -> list[int]:
+    """write_idx as one slot a row: an int (or a 0-d tensor) is every row's
+    slot, a (B,) integer tensor or sequence gives row i write_idx[i]. A
+    tensor is read to the host, once: on the card that is one sync a step,
+    of B <= 8 values, which size the attention's splits (step_splits).
+    Refuses a non-integer type, another shape and a slot outside [0, T)."""
+    if isinstance(write_idx, torch.Tensor):
+        if write_idx.dtype.is_floating_point or write_idx.dtype.is_complex or write_idx.dtype == torch.bool:
+            raise TypeError(f"write_idx: dtype {write_idx.dtype}, expected an integer type")
+        write_idx = write_idx.tolist()
+    slots = np.asarray(write_idx)
+    if slots.dtype.kind not in "iu":
+        raise TypeError(f"write_idx: {write_idx!r}, expected integers")
+    if slots.ndim == 0:
+        slots = np.full(b, slots)
+    elif slots.shape != (b,):
+        raise ValueError(f"write_idx: shape {slots.shape}, expected () or ({b},)")
+    if slots.min() < 0 or slots.max() >= t:
+        raise ValueError(f"write_idx {slots.tolist()} outside the cache [0, {t})")
+    return [int(v) for v in slots]
+
+
+def _check_step(x, weights, kv_cache, mask, write_idx, kv_scales) -> list[int]:
+    """Refuses what the step cannot take, before any work; returns the
+    rows' slots (_slots)."""
     n_layers, b, t, d2 = kv_cache.shape
     d = d2 // 2
     if kv_cache.dtype == torch.int8 and kv_scales is None:
         raise ValueError("int8 kv_cache requires kv_scales (L,B,2,T)")
     if x.shape != (b, d):
         raise ValueError(f"x: shape {tuple(x.shape)}, expected {(b, d)}")
-    if not 0 <= write_idx < t:
-        raise ValueError(f"write_idx {write_idx} outside the cache")
+    return _slots(write_idx, b, t)
 
 
-def _write_new_kv(kv_cache, kv_scales, kv_new, write_idx):
-    """The new token's K||V (L, B, 2D) bf16 into the cache at write_idx,
-    quantized per token in int8-KV mode (the TPU wrapper did this in XLA
-    too, decode_step.py:487-520)."""
-    if kv_cache.dtype != torch.int8:
-        kv_cache[:, :, write_idx] = kv_new.to(kv_cache.dtype)
-        return kv_cache, None
-    d = kv_new.shape[-1] // 2
-    kf = kv_new[..., :d].float()
-    vf = kv_new[..., d:].float()
-    sk = torch.clamp_min(kf.abs().amax(-1) / 127.0, 1e-8)  # (L, B)
-    sv = torch.clamp_min(vf.abs().amax(-1) / 127.0, 1e-8)
-    kq = torch.clamp(torch.round(kf / sk[..., None]), -127, 127)
-    vq = torch.clamp(torch.round(vf / sv[..., None]), -127, 127)
-    kv_cache[:, :, write_idx] = torch.cat([kq, vq], dim=-1).to(torch.int8)
-    kv_scales[:, :, :, write_idx] = torch.stack([sk, sv], dim=2)
-    return kv_cache, kv_scales
+def _write_new_kv(kv_cache, kv_scales, kv_new, slots):
+    """The new token's K||V (L, B, 2D) bf16 into the cache, row i at
+    slots[i], quantized per token in int8-KV mode (the TPU wrapper did this
+    in XLA too, decode_step.py:487-520)."""
+    if kv_cache.dtype == torch.int8:
+        d = kv_new.shape[-1] // 2
+        kf = kv_new[..., :d].float()
+        vf = kv_new[..., d:].float()
+        sk = torch.clamp_min(kf.abs().amax(-1) / 127.0, 1e-8)  # (L, B)
+        sv = torch.clamp_min(vf.abs().amax(-1) / 127.0, 1e-8)
+        kq = torch.clamp(torch.round(kf / sk[..., None]), -127, 127)
+        vq = torch.clamp(torch.round(vf / sv[..., None]), -127, 127)
+        kv_new = torch.cat([kq, vq], dim=-1)
+        new_scales = torch.stack([sk, sv], dim=2)  # (L, B, 2)
+    for row, slot in enumerate(slots):
+        kv_cache[:, row, slot] = kv_new[:, row].to(kv_cache.dtype)
+        if kv_cache.dtype == torch.int8:
+            kv_scales[:, row, :, slot] = new_scales[:, row]
+    return kv_cache, kv_scales if kv_cache.dtype == torch.int8 else None
 
 
 def _result(x, kv_cache, kv_scales):
@@ -465,7 +359,7 @@ def _result(x, kv_cache, kv_scales):
 
 
 def _step_plain(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads):
-    _check_step(x, weights, kv_cache, mask, write_idx, kv_scales)
+    slots = _check_step(x, weights, kv_cache, mask, write_idx, kv_scales)
     n_layers, b, _, d2 = kv_cache.shape
     d = d2 // 2
     int8_kv = kv_cache.dtype == torch.int8
@@ -477,14 +371,14 @@ def _step_plain(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads):
     for i in range(n_layers):
         qkv = proj_plain(x, w("wqkv", i), weights["bqkv"][i], sc("wqkv", i))
         kv_new[i] = qkv[:, d:]
-        ctx = decode_attn_plain(qkv, kv_cache[i], kv_scales[i] if int8_kv else None, mask, write_idx, num_heads)
+        ctx = decode_attn_plain(qkv, kv_cache[i], kv_scales[i] if int8_kv else None, mask, max(slots), num_heads)
         a = proj_plain(ctx, w("wo", i), weights["bo"][i], sc("wo", i))
         xn = add_layernorm_plain(x, a, weights["n1s"][i], weights["n1b"][i])
         hdn = proj_plain(xn, w("fc1", i), weights["b1"][i], sc("fc1", i), relu=True)
         y2 = proj_plain(hdn, w("fc2", i), weights["b2"][i], sc("fc2", i))
         x = add_layernorm_plain(xn, y2, weights["n2s"][i], weights["n2b"][i])
     # the new token's K/V go into the cache after all layers read it
-    return _result(x, *_write_new_kv(kv_cache, kv_scales, kv_new, write_idx))
+    return _result(x, *_write_new_kv(kv_cache, kv_scales, kv_new, slots))
 
 
 MATS = ("wqkv", "wo", "fc1", "fc2")  # the order gsv_decode_step takes them in
@@ -502,19 +396,20 @@ def _sync(device, stream: int) -> torch.Tensor:
     return _SYNC[key]
 
 
-def step_splits(write_idx: int, kv_int8: bool) -> tuple[int, int]:
+def step_splits(n_valid: int, kv_int8: bool) -> tuple[int, int]:
     """(slot_r, n_split) of the whole-step kernel's attention: a block takes
-    a (row, head) and cuts its live prefix [0, write_idx) into n_split
+    a (row, head) and cuts the sweep [0, n_valid) (n_valid: the largest of
+    the rows' write slots) into n_split
     splits of 32 x slot_r cache slots (a warp a split, slot_r slots a lane),
     at least one. slot_r is the smallest of 1, 2 (and 4 with int8 KV) that
     gives each warp of the block at most one split, or the largest."""
     choices = (1, 2, 4) if kv_int8 else (1, 2)
     for r in choices:
-        n_split = max(1, -(-write_idx // (32 * r)))
+        n_split = max(1, -(-n_valid // (32 * r)))
         if n_split <= STEP_WARPS:
             break
     if n_split > STEP_MAX_SPLITS:
-        raise ValueError(f"the step kernel attends to at most {STEP_MAX_SPLITS * 32 * r} cache slots, got {write_idx}")
+        raise ValueError(f"the step kernel attends to at most {STEP_MAX_SPLITS * 32 * r} cache slots, got {n_valid}")
     return r, n_split
 
 
@@ -523,20 +418,21 @@ def _check_step_dims(d: int, f: int, num_heads: int):
         raise ValueError(f"the step kernel is built for (D, F, heads) = {STEP_DIMS}, got {(d, f, num_heads)}")
 
 
-def check_step_request(device, d: int, f: int, num_heads: int, last_write_idx: int, kv_int8: bool):
+def check_step_request(device, d: int, f: int, num_heads: int, n_valid: int, kv_int8: bool):
     """Refuses, before a request does any work, what the step kernel cannot
     run: widths other than STEP_DIMS on a card (the CPU twins take any), and
-    on every device a live prefix longer than the kernel's attention splits
-    reach (step_splits), so that the CPU refuses what the card would."""
+    on every device a sweep (the last step's largest write slot, n_valid)
+    longer than the kernel's attention splits reach (step_splits), so that
+    the CPU refuses what the card would."""
     if torch.device(device).type == "cuda":
         _check_step_dims(d, f, num_heads)
-    step_splits(last_write_idx, kv_int8)
+    step_splits(n_valid, kv_int8)
 
 
 def _step_cuda(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads):
     """The whole step in one launch of the persistent kernel
     (gsv_decode_step), which also writes the new token's K/V into the cache."""
-    _check_step(x, weights, kv_cache, mask, write_idx, kv_scales)
+    slots = _check_step(x, weights, kv_cache, mask, write_idx, kv_scales)
     n_layers, b, t, d2 = kv_cache.shape
     d = d2 // 2
     dev = x.device
@@ -565,14 +461,15 @@ def _step_cuda(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads):
     qkv = torch.empty((b, 3 * d), **f32)
     ctx, attn, y2 = (torch.empty((b, d), **f32) for _ in range(3))
     hdn = torch.empty((b, f), **f32)
-    slot_r, splits = step_splits(write_idx, int8_kv)
+    slot_r, splits = step_splits(max(slots), int8_kv)
     ptrs = lambda keys: (ctypes.c_void_p * len(keys))(*(weights[k].data_ptr() for k in keys))  # noqa: E731
     stream = _stream(x)
     rc = _lib().gsv_decode_step(
         x.data_ptr(), h.data_ptr(), ptrs(MATS), ptrs([f"{k}_s" for k in MATS]) if quant else None, ptrs(VECS),
         kv_cache.data_ptr(), kv_scales.data_ptr() if int8_kv else None, mask.data_ptr(),
         *(z.data_ptr() for z in (qkv, ctx, attn, hdn, y2)), _sync(dev, stream).data_ptr(),
-        _attn_scale(d, num_heads), n_layers, b, t, write_idx, splits, slot_r, int(quant), int(int8_kv), stream,
+        _attn_scale(d, num_heads), n_layers, b, t, (ctypes.c_int * b)(*slots), splits, slot_r, int(quant),
+        int(int8_kv), stream,
     )
     if rc == COOPERATIVE_TOO_LARGE:
         raise RuntimeError("the step kernel needs its 128 blocks resident at once, and this card holds fewer")
@@ -580,19 +477,21 @@ def _step_cuda(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads):
     return _result(h, kv_cache, kv_scales)
 
 
-def fused_decode_step(x, weights, kv_cache, mask, write_idx: int, kv_scales=None, *, num_heads: int = 16):
+def fused_decode_step(x, weights, kv_cache, mask, write_idx, kv_scales=None, *, num_heads: int = 16):
     """Returns (hidden (B, D) f32, kv_cache) -- plus kv_scales in int8-KV
-    mode -- with the new K||V written at write_idx. Weights as built by
-    `stack_weights_from_params`. CUDA tensors run the whole-step kernel;
+    mode -- with row i's new K||V written at its slot: write_idx, an int for
+    every row or a (B,) integer tensor or sequence (a tensor on the card is
+    read to the host once, to size the attention's splits). Weights as built
+    by `stack_weights_from_params`. CUDA tensors run the whole-step kernel;
     CPU tensors run the plain twins."""
     if _route(x):
-        return _step_cuda(x, weights, kv_cache, mask, int(write_idx), kv_scales, num_heads)
-    return _step_plain(x, weights, kv_cache, mask, int(write_idx), kv_scales, num_heads)
+        return _step_cuda(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads)
+    return _step_plain(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads)
 
 
-def fused_decode_step_plain(x, weights, kv_cache, mask, write_idx: int, kv_scales=None, *, num_heads: int = 16):
+def fused_decode_step_plain(x, weights, kv_cache, mask, write_idx, kv_scales=None, *, num_heads: int = 16):
     """The same function on the plain twins, on any device."""
-    return _step_plain(x, weights, kv_cache, mask, int(write_idx), kv_scales, num_heads)
+    return _step_plain(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads)
 
 
 def step_bytes(weights: dict, kv_cache: torch.Tensor, n_valid: int) -> int:

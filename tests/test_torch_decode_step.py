@@ -145,18 +145,29 @@ def test_stacked_weights_equal(params, quant):
         np.testing.assert_array_equal(got.float().numpy(), np.asarray(jw[k], np.float32), err_msg=k)
 
 
-def test_wrappers_route_by_device():
-    """CPU tensors take the plain twin; any other device is refused (a CUDA
-    tensor launches the kernel, which only the card can run)."""
-    rng = np.random.default_rng(2)
-    x = torch.from_numpy(rng.standard_normal((2, 64)).astype(np.float32))
-    w = torch.from_numpy(rng.standard_normal((64, 128)).astype(np.float32)).to(torch.bfloat16)
-    bias = torch.zeros(128)
+def test_wrappers_route_by_device(params):
+    """The step's wrapper routes by the tensors' device with a per-row
+    write_idx too: CPU tensors take the plain twin, bit for bit, with no
+    launch counted (the only kernel counted is the whole step); a device
+    with no kernel (meta) is refused (a CUDA tensor launches the kernel,
+    which only the card can run)."""
+    x, kv, mask = _case(2, seed=2)
+    pw = _torch_weights(params, "int8")
+    kq, sc = pds.quantize_kv_cache(torch.from_numpy(kv))
+    widx = torch.tensor([N_VALID, N_VALID - 9])
+    assert set(pds.launch_counts()) == {"fused_decode_step"}
     before = pds.launch_counts()
-    torch.testing.assert_close(pds.proj(x, w, bias, relu=True), pds.proj_plain(x, w, bias, relu=True), rtol=0, atol=0)
+    got = pds.fused_decode_step(torch.from_numpy(x), pw, kq.clone(), torch.from_numpy(mask), widx, sc.clone(),
+                                num_heads=TINY["num_heads"])
+    ref = pds.fused_decode_step_plain(torch.from_numpy(x), pw, kq.clone(), torch.from_numpy(mask), widx, sc.clone(),
+                                      num_heads=TINY["num_heads"])
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
     assert pds.launch_counts() == before  # the plain twin is not a kernel launch
+    meta = {k: v.to("meta") for k, v in pw.items()}
     with pytest.raises(ValueError, match="no kernel"):
-        pds.proj(x.to("meta"), w.to("meta"), bias.to("meta"))
+        pds.fused_decode_step(torch.from_numpy(x).to("meta"), meta, kq.to("meta"), torch.from_numpy(mask).to("meta"),
+                              widx, sc.to("meta"), num_heads=TINY["num_heads"])
 
 
 @pytest.mark.parametrize("quant", ["bf16", "int8"])
@@ -297,3 +308,112 @@ def test_step_request_refused_before_any_work(kv_int8):
     pds.check_step_request("cpu", TINY["hidden_dim"], TINY["ffn_dim"], TINY["num_heads"], N_VALID, kv_int8)
     with pytest.raises(ValueError, match="built for"):
         pds.check_step_request("cuda", TINY["hidden_dim"], TINY["ffn_dim"], TINY["num_heads"], N_VALID, kv_int8)
+
+
+# ---------------------------------------------------------------------------
+# one write slot a row: write_idx of shape (B,), as continuous batching runs
+# ---------------------------------------------------------------------------
+
+ROW_SLOTS = {2: [N_VALID, 45], 3: [N_VALID, 45, 12]}  # rows at different steps; the sweep is max = N_VALID
+
+
+def _rowwise_case(b, seed):
+    """_case with row i live over [0, slots[i]) (row 0 keeps its hole)."""
+    x, kv, mask = _case(b, seed)
+    slots = np.asarray(ROW_SLOTS[b])
+    mask[:] = np.arange(T_PAD)[None, :] < slots[:, None]
+    mask[0, 5:9] = 0.0
+    return x, kv, mask, slots
+
+
+def _new_kv(kv, scales, slots, d):
+    """(L, B, 2D): row i's K||V at slots[i], dequantized with its scales
+    (L, B, 2, T) where given."""
+    rows = np.arange(len(slots))
+    new = kv[:, rows, slots]
+    if scales is not None:
+        s = scales[:, rows, :, slots]  # (B, L, 2): numpy puts the split advanced indices first
+        new = np.concatenate([new[..., :d] * s[..., :1].transpose(1, 0, 2), new[..., d:] * s[..., 1:].transpose(1, 0, 2)], -1)
+    return new
+
+
+@pytest.mark.parametrize("kv_mode", ["bf16", "int8"])
+@pytest.mark.parametrize("b", [2, 3])
+def test_rowwise_step_matches_pallas(params, b, kv_mode):
+    """The step with one write slot a row, rows at different slots, against
+    Pallas in interpret mode with the same (B,) write_idx (the chunk
+    covering the sweep, as in test_step_matches_pallas), at that test's
+    bars: row i's new K/V at slots[i] (dequantized in int8-KV mode), the
+    logits. Every other cache slot (and scale) is the input's, bit for
+    bit, on both sides."""
+    x, kv, mask, slots = _rowwise_case(b, seed=6)
+    d = TINY["hidden_dim"]
+    jw = jds.stack_weights_from_params(params, TINY["num_layers"])
+    jkv = jnp.asarray(kv).astype(jnp.bfloat16)
+    pkv = torch.from_numpy(kv).to(torch.bfloat16)
+    jsc = psc = None
+    if kv_mode == "int8":
+        jkv, jsc = jds.quantize_kv_cache(jnp.asarray(kv))
+        pkv, psc = pds.quantize_kv_cache(torch.from_numpy(kv))
+    before = np.asarray(jkv, np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        jout = jds.fused_decode_step(jnp.asarray(x), jw, jkv, jnp.asarray(mask), jnp.asarray(slots, jnp.int32), jsc,
+                                     chunk=128, num_heads=TINY["num_heads"])
+    pout = pds.fused_decode_step(torch.from_numpy(x), _torch_weights(params, "bf16"), pkv, torch.from_numpy(mask),
+                                 torch.from_numpy(slots), psc, num_heads=TINY["num_heads"])
+    kvj, kvp = np.asarray(jout[1], np.float32), pout[1].float().numpy()
+    written = np.zeros((b, T_PAD), bool)
+    written[np.arange(b), slots] = True
+    for got in (kvj, kvp):
+        np.testing.assert_array_equal(got[:, ~written], before[:, ~written])
+    sj = sp = None
+    if kv_mode == "int8":
+        sj, sp = np.asarray(jout[2]), pout[2].numpy()
+        for got in (sj, sp):  # the scales, (L, B, 2, T), as (L, B, T, 2)
+            np.testing.assert_array_equal(got.transpose(0, 1, 3, 2)[:, ~written],
+                                          np.asarray(jsc).transpose(0, 1, 3, 2)[:, ~written])
+    np.testing.assert_allclose(_new_kv(kvp, sp, slots, d), _new_kv(kvj, sj, slots, d), atol=2e-2, rtol=2e-2)
+    head = np.asarray(params["params"]["predict"]["kernel"])
+    lj, lp = np.asarray(jout[0]) @ head, pout[0].numpy() @ head
+    np.testing.assert_allclose(lp, lj, atol=5e-2, rtol=5e-2)
+    assert np.corrcoef(lp.ravel(), lj.ravel())[0, 1] > 0.9999
+
+
+@pytest.mark.parametrize("kv_mode", ["bf16", "int8"])
+def test_rowwise_equal_slots_equal_the_scalar_step(params, kv_mode):
+    """A write_idx whose entries are all equal is the scalar call, bit for
+    bit: hidden state, cache and scales."""
+    x, kv, mask = _case(3, seed=8)
+    pw = _torch_weights(params, "int8")
+    cache, sc = ((torch.from_numpy(kv).to(torch.bfloat16), None) if kv_mode == "bf16"
+                 else pds.quantize_kv_cache(torch.from_numpy(kv)))
+
+    def step(widx):
+        return pds.fused_decode_step(torch.from_numpy(x), pw, cache.clone(), torch.from_numpy(mask), widx,
+                                     None if sc is None else sc.clone(), num_heads=TINY["num_heads"])
+
+    for g, r in zip(step(torch.full((3,), N_VALID)), step(N_VALID)):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("widx", [
+    torch.tensor([N_VALID, 3, 4]),  # (B + 1,)
+    torch.tensor([[N_VALID, 3]]),  # 2-D
+    torch.tensor([N_VALID, T_PAD]),  # a slot past the cache
+    torch.tensor([-1, N_VALID]),  # a negative slot
+    torch.tensor([N_VALID, 3.0]),  # not integers
+    [N_VALID],  # a sequence of the wrong length
+], ids=["rows+1", "2d", "past", "negative", "float", "short-list"])
+@pytest.mark.parametrize("plain", [False, True])
+def test_rowwise_refusals_before_any_work(params, widx, plain):
+    """A write_idx of another shape than () or (B,), of a non-integer type,
+    or with a slot outside [0, T) is refused by both functions before any
+    work: the cache is left as it was."""
+    x, kv, mask = _case(2, seed=9)
+    cache = torch.from_numpy(kv).to(torch.bfloat16)
+    before = cache.clone()
+    fn = pds.fused_decode_step_plain if plain else pds.fused_decode_step
+    with pytest.raises((ValueError, TypeError), match="write_idx"):
+        fn(torch.from_numpy(x), _torch_weights(params, "bf16"), cache, torch.from_numpy(mask), widx,
+           num_heads=TINY["num_heads"])
+    torch.testing.assert_close(cache, before, rtol=0, atol=0)

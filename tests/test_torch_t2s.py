@@ -171,3 +171,32 @@ def test_fused_generate_refuses_a_prefix_past_the_step_kernel(models, monkeypatc
             torch.from_numpy(prompts).long(), torch.full((b,), tp), torch.Generator().manual_seed(0),
             max_new_tokens=reach - tx - tp + 3, use_fused_kernel=True, kv_cache_quant=kv_cache_quant,
         )
+
+
+@pytest.mark.parametrize("write_idx", [[5, 11, 8], [9, 9, 2]])
+def test_decode_step_writes_each_row_at_its_slot(models, write_idx):
+    """T2SDecoder.decode_step with a (B,) write_idx (rows at independent
+    steps, as continuous batching runs them) against the JAX decode_step:
+    row i's new K/V lands at write_idx[i] only, every other slot keeps its
+    value, and the logits agree (f32 on both sides: 1e-4)."""
+    jm, params, pm = models
+    rng = np.random.default_rng(7)
+    n_layers, h = CFG["num_layers"], CFG["num_heads"]
+    b, t, dh = len(write_idx), 16, CFG["hidden_dim"] // CFG["num_heads"]
+    k = (rng.standard_normal((n_layers, b, t, h, dh)) * 0.5).astype(np.float32)
+    v = (rng.standard_normal((n_layers, b, t, h, dh)) * 0.5).astype(np.float32)
+    emb = (rng.standard_normal((b, 1, CFG["embedding_dim"])) * 0.5).astype(np.float32)
+    valid = np.arange(t)[None, :] <= np.asarray(write_idx)[:, None]  # each row's prefix and its own slot
+    widx = np.asarray(write_idx, np.int32)
+    lj, kj, vj = jm.apply(params, jnp.asarray(emb), jnp.asarray(k), jnp.asarray(v), jnp.asarray(valid),
+                          jnp.asarray(widx), method=jt2s.T2SDecoder.decode_step)
+    kp, vp = torch.from_numpy(k.copy()), torch.from_numpy(v.copy())
+    with torch.no_grad():
+        lp = pm.decode_step(torch.from_numpy(emb), kp, vp, torch.from_numpy(valid), torch.from_numpy(widx).long())
+    np.testing.assert_allclose(lp.numpy(), np.asarray(lj), rtol=1e-4, atol=1e-4)
+    for got, want, before in ((kp.numpy(), np.asarray(kj), k), (vp.numpy(), np.asarray(vj), v)):
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+        written = np.zeros((b, t), bool)
+        written[np.arange(b), widx] = True
+        np.testing.assert_array_equal(got[:, ~written], before[:, ~written])
+        assert np.abs(got[:, written] - before[:, written]).min() > 0
