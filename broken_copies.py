@@ -1,15 +1,17 @@
 """Copies of the port with one fault planted in a CUDA kernel (K1's whole
 step in `csrc/decode_step.cu`, K6 `csrc/snake_aa.cu` and its plan in
 `ops/snake_aa.py`, K3, K4's path and the s8 GEMM of K2/K3/K4 in
-`csrc/qmatmul.cu` and its plan in `ops/qmatmul.py`, K5 `csrc/qflash.cu`),
-each of which must fail chip_smoke.py's check of that kernel on the card.
+`csrc/qmatmul.cu` and its plan in `ops/qmatmul.py`, K5 `csrc/qflash.cu`) or
+in the continuous-batching pool that drives K1 (`infer/continuous.py`),
+each of which must fail chip_smoke.py's check of that kernel or path on
+the card.
 
     python3 broken_copies.py        # one CUDA card; exits non-zero if a copy passes its check
 
 Each copy is gpt_sovits_tpu_torch/ and chip_smoke.py under a temporary
 directory outside the checkout, with one line of one source replaced; its
 checks (chip_smoke.k1_case, k1_rows_case, snake_case, k3_case, k4_case,
-k5_case or gemm_case at a main-path shape) run in a child process there, which builds the copy's kernels. The
+k5_case or gemm_case at a main-path shape, k1_sweep_case, serve_case) run in a child process there, which builds the copy's kernels. The
 same checks run first on the unbroken sources and must pass. One JSON line
 per copy and check: the check's outcome and the end of its assertion
 message.
@@ -31,6 +33,8 @@ SNAKE_PY = "gpt_sovits_tpu_torch/ops/snake_aa.py"
 QMM = "gpt_sovits_tpu_torch/csrc/qmatmul.cu"
 QMM_PY = "gpt_sovits_tpu_torch/ops/qmatmul.py"
 QFLASH = "gpt_sovits_tpu_torch/csrc/qflash.cu"
+DS_PY = "gpt_sovits_tpu_torch/ops/decode_step.py"
+POOL = "gpt_sovits_tpu_torch/infer/continuous.py"
 CHECKS = {
     # K1's whole step at full width, random and peaked inputs (step_cases)
     "k1_int8": "c.k1_case('int8', 1, g)",
@@ -54,6 +58,11 @@ CHECKS = {
     "k5_t1000": "c.k5_case(1, 1000, 960, g)",
     # K2's block at M = 1000: the GEMM's last 128-row block is ragged
     "gemm_ragged": "c.gemm_case(1, 1000, g)",
+    # K1 at B=8, one write slot a row, under the serving pool's split plan (sweep_cases)
+    "k1_sweep_int8": "c.k1_sweep_case('int8', g)",
+    # the continuous-batching pool on K1 at full width: serve_v2 (pool layout and the pool's
+    # own step against the twin, waves, greedy bar)
+    "serve": "c.serve_case(g)",
 }
 # (name, source, the line as it is, the broken line, checks that must fail)
 COPIES = [
@@ -108,6 +117,16 @@ COPIES = [
      "    const int n_tiles = T / KB;", ("k5_t1000",)),
     ("K5: ring slot k+1's tile consumed as slot k's", QFLASH, "        const uint8_t* k_tile = sk + st * K_BYTES;",
      "        const uint8_t* k_tile = sk + ((st + 1) % FA_STAGES) * K_BYTES;", ("k5_b1",)),
+    ("pool: a row installed one slot off", POOL, "        s.kv[:, sl] = kv.to(s.kv.dtype)",
+     "        s.kv[:, sl, 1:] = kv[:, :, :-1].to(s.kv.dtype)", ("serve",)),
+    ("pool: every row stepped at row 0's write slot", POOL,
+     "        slots = self.scratch + np.maximum(g - 1, 0)  # (n, B): the token sampled g - 1 steps ago",
+     "        slots = np.repeat(self.scratch + np.maximum(g[:, :1] - 1, 0), b, axis=1)", ("serve",)),
+    ("K1: rows 4-7 write at the slots of rows 0-3", DS, "    const int slot = a.slot[b];",
+     "    const int slot = a.slot[b & 3];", ("k1_sweep_int8", "serve")),
+    ("K1 plan: slot_r for the step's own sweep, the split count for the plan's", DS_PY,
+     "    return slot_r, max(1, -(-n_valid // (32 * slot_r)))",
+     "    return step_splits(n_valid, kv_int8)[0], max(1, -(-n_valid // (32 * slot_r)))", ("k1_sweep_int8",)),
 ]
 
 

@@ -11,13 +11,23 @@ a live prefix of 745, B in {1, 8}, bf16 and int8/int8: the whole-step kernel
 on random inputs and on a step whose layer-0 attention is peaked on the
 fresh token with large keys in a masked hole, step_cases), widths (the
 whole step at B = 2..7 in both modes, random and peaked, held only; at the
-longest prefix it takes; and at B = 2 and 4 with one write slot a row,
-rows at different steps, rowwise_cases), path (v2ProPlus: set_ref_audio +
+longest prefix it takes; at B = 2 and 4 with one write slot a row,
+rows at different steps, rowwise_cases; at B = 8 under the serving pool's
+split plan, sweep_cases), path (v2ProPlus: set_ref_audio +
 several `run` requests with random full-width weights made from --seed;
 launch counts read from the CUDA code: one whole-step launch an S1 step), teacher (a greedy S1
 trajectory through the kernel vs the plain twin), stream_v2 (one
 run_streaming request: a fragment per segment, each of its tokens' length
-plus the silence, and the time to the first); then for v4: kernels (K2, K3,
+plus the silence, and the time to the first), serve_v2 (the continuous
+service on that pipeline: an 8-slot pool read mid-decode, every row's mask
+and K/V where the layout puts them, the pool's own 8-row step held
+against the twin, and that step profiled; then
+12 requests from threads in three waves of 4 with mixed sampling: audio
+lengths, one K1 launch a pool step, more than one live row, greedy
+agreement >= 0.9 with `generate` and with a B=1 K1 decode by the pool's
+rule, a seeded request's tokens alone as among co-tenants), http (the
+api_v2 server over the service: 4 concurrent POST /tts, a streamed GET, an
+unported language answering 400); then for v4: kernels (K2, K3,
 K5 at dim 1024, 16 x 64 heads, ff 2048, T=1024 with 1000 real frames, B in
 {1, 4}, on inputs where a mask or rotary fault shows; K3 also with a q scale
 and at T = 1000, K5 at T = 1000 and 2048; device time split into the GEMM or
@@ -26,7 +36,8 @@ with a transcript + two `run` requests through S1, the int8 DiT CFM and the
 48 kHz vocoder, one of them a multi-chunk CFM batch; launch counts from the
 CUDA code equal the per-call counts times the CFM calls, and one K1 launch
 an S1 step), cfm_teacher (one full-width CFM chunk through the kernels and
-through the twins, and its profile); then for v3: v3_kernels (K6 at
+through the twins, and its profile), http_v4 (one POST /tts through the v4
+pipeline's batch branch); then for v3: v3_kernels (K6 at
 BigVGAN's six stage shapes of a 2224-frame mel in bf16 and f32, timed, and
 at rows off a 16-byte boundary and T = 1, 3, 7, 13, held only, on x of
 amplitude 5-20 with per-channel alpha and beta, edges held on their own; K4
@@ -53,9 +64,15 @@ from __future__ import annotations
 
 import argparse
 import json
+import struct
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.error
+import urllib.parse
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -66,7 +83,9 @@ from gpt_sovits_tpu_torch import resolve_device
 from gpt_sovits_tpu_torch.infer.pipeline import TTSPipeline, v3_chunk_plan
 from gpt_sovits_tpu_torch.models.eres2net import ERes2NetV2
 from gpt_sovits_tpu_torch.models.hubert import HubertEncoder
-from gpt_sovits_tpu_torch.models.t2s import T2SDecoder, build_prefix_attn_bias
+from gpt_sovits_tpu_torch.models.t2s import (
+    EOS_MASK_WARMUP_STEPS, T2SDecoder, build_prefix_attn_bias, filter_logits, generate,
+)
 from gpt_sovits_tpu_torch.models.vits import SynthesizerTrn
 from gpt_sovits_tpu_torch.ops import build
 from gpt_sovits_tpu_torch.ops import decode_step as ds
@@ -228,22 +247,23 @@ def peaked_step_inputs(w, quant: str, b: int, g: torch.Generator, live: int = LI
     return (*_step_kv(kv_f, quant), mask, x)
 
 
-def hold_step(w, quant: str, kv, kv_s, mask, x, slots) -> tuple[float, float]:
+def hold_step(w, quant: str, kv, kv_s, mask, x, slots, plan_sweep=None) -> tuple[float, float]:
     """One step through the kernel and through the twin on the card, each
     on its own copy of the cache, writing at `slots`: an int, every row's
-    slot, or one slot a row (passed as a (B,) tensor on the card). The
+    slot, or one slot a row, passed as given (a (B,) tensor on the card, or
+    a host list, as the serving pool passes it); the kernel's split plan
+    chosen for `plan_sweep` (ds.step_plan; the twin has no splits). The
     hidden state and each row's new K/V at its slot within the JAX tests'
     bars (bf16: 2e-2 abs; int8: rel 0.02, the probability scale being per
     split); every other slot of the kernel's cache (and of its scales) as
     it was. Returns the hidden state's (max abs, mean rel) error."""
     b, t = mask.shape
-    per_row = [slots] * b if isinstance(slots, int) else list(slots)
-    widx = slots if isinstance(slots, int) else torch.tensor(per_row, device=x.device)
+    per_row = [slots] * b if isinstance(slots, int) else [int(v) for v in slots]
     rows = torch.arange(b, device=x.device)
     at = torch.tensor(per_row, device=x.device)
 
-    def step(fn):
-        return fn(x, w, kv.clone(), mask, widx, kv_s.clone() if kv_s is not None else None, num_heads=H)
+    def step(fn, **kw):
+        return fn(x, w, kv.clone(), mask, slots, kv_s.clone() if kv_s is not None else None, num_heads=H, **kw)
 
     def new_kv(out):  # (L, B, 2D): row i's new K/V at its slot
         kv_new = out[1][:, rows, at].float()
@@ -252,7 +272,7 @@ def hold_step(w, quant: str, kv, kv_s, mask, x, slots) -> tuple[float, float]:
             kv_new = torch.cat([kv_new[..., :D] * s_new[..., :1], kv_new[..., D:] * s_new[..., 1:]], -1)
         return kv_new
 
-    got, ref = step(ds.fused_decode_step), step(ds.fused_decode_step_plain)
+    got, ref = step(ds.fused_decode_step, plan_sweep=plan_sweep), step(ds.fused_decode_step_plain)
     e_abs, e_rel = float((got[0] - ref[0]).abs().max()), rel_err(got[0], ref[0])
     assert (e_rel < 0.02) if quant == "int8" else (e_abs < 2e-2), f"step B={b}: abs {e_abs} rel {e_rel}"
     kv_abs, kv_rel = float((new_kv(got) - new_kv(ref)).abs().max()), rel_err(new_kv(got), new_kv(ref))
@@ -286,23 +306,38 @@ def step_cases(w, quant: str, b: int, g: torch.Generator, live: int = LIVE, t_pa
 
 
 ROW_SLOTS = (LIVE, 201, LIVE - 1, 38)  # rows at different steps: row i writes at ROW_SLOTS[i]
+# eight rows at different steps, all below 256 slots, stepped with the serving
+# pool's split plan (its sweep, POOL's scratch + max_new = 1324): there K1's
+# slot_r (4 int8, 2 bf16) is larger than step_splits would take for these
+# slots (1), so the splits are fewer and longer than on any other path
+SWEEP_SLOTS, PLAN_SWEEP = (200, 37, 255, 1, 128, 64, 90, 161), 1324
 
 
-def rowwise_cases(w, quant: str, b: int, g: torch.Generator) -> dict:
-    """The step with one write slot a row (a (B,) write_idx, rows at
-    different steps, as continuous batching runs them), held as hold_step
-    holds it: row i live over [0, ROW_SLOTS[i]) under its mask, on random
-    inputs and on peaked_step_inputs (every row's layer-0 attention peaked
-    on its fresh token); each row's new K/V at its own slot, every other
-    slot and scale unchanged."""
-    slots = list(ROW_SLOTS[:b])
-    out = {"slots": slots}
+def rowwise_cases(w, quant: str, b: int, g: torch.Generator, row_slots=ROW_SLOTS, plan_sweep=None) -> dict:
+    """The step with one write slot a row (a (B,) write_idx tensor, or with
+    a plan sweep the host list the serving pool passes; rows at different
+    steps, as continuous batching runs them), held as hold_step holds it:
+    row i live over [0, row_slots[i]) under its mask, on random inputs and
+    on peaked_step_inputs (every row's layer-0 attention peaked on its fresh
+    token); each row's new K/V at its own slot, every other slot and scale
+    unchanged."""
+    slots = list(row_slots[:b])
+    out = {"slots": slots, "plan": ds.step_plan(max(slots), quant == "int8", plan_sweep)}
     for case in ("random", "peaked"):
         kv, kv_s, mask, x = (step_inputs(quant, b, g) if case == "random" else peaked_step_inputs(w, quant, b, g))
         mask *= (torch.arange(T_PAD, device=mask.device)[None] < torch.tensor(slots, device=mask.device)[:, None])
-        e_abs, e_rel = hold_step(w, quant, kv, kv_s, mask, x, slots)
+        widx = slots if plan_sweep is not None else torch.tensor(slots, device=x.device)
+        e_abs, e_rel = hold_step(w, quant, kv, kv_s, mask, x, widx, plan_sweep)
         out[case] = {"max_abs_err": e_abs, "rel_err": e_rel}
     return out
+
+
+def sweep_cases(w, quant: str, g: torch.Generator) -> dict:
+    """rowwise_cases at B=8 on SWEEP_SLOTS under the serving pool's plan
+    sweep, where the plan's slot_r exceeds step_splits' for the step."""
+    kv8 = quant == "int8"
+    assert ds.step_splits(PLAN_SWEEP, kv8)[0] > ds.step_splits(max(SWEEP_SLOTS), kv8)[0]
+    return rowwise_cases(w, quant, 8, g, SWEEP_SLOTS, PLAN_SWEEP)
 
 
 def _s1_weights(quant: str) -> dict:
@@ -320,6 +355,11 @@ def k1_case(quant: str, b: int, g: torch.Generator) -> dict:
 def k1_rows_case(quant: str, b: int, g: torch.Generator) -> dict:
     """rowwise_cases at full width on S1Config() weights made from seed 0."""
     return rowwise_cases(_s1_weights(quant), quant, b, g)
+
+
+def k1_sweep_case(quant: str, g: torch.Generator) -> dict:
+    """sweep_cases at full width on S1Config() weights made from seed 0."""
+    return sweep_cases(_s1_weights(quant), quant, g)
 
 
 def kernel_phase(s1_state: dict, quant: str, b: int, seed: int) -> dict:
@@ -361,8 +401,9 @@ def width_phase(s1_state: dict, seed: int) -> dict:
     batches of 2..7 rows), held against the twin on random and peaked
     inputs (step_cases), in both modes; at B = 2 on the longest live
     prefix the kernel takes (all STEP_MAX_SPLITS attention splits of a
-    (row, head): 8192 slots with bf16 KV, 16384 with int8); and at B = 2
-    and 4 with one write slot a row (rowwise_cases)."""
+    (row, head): 8192 slots with bf16 KV, 16384 with int8); at B = 2
+    and 4 with one write slot a row (rowwise_cases); and at B = 8 with one
+    write slot a row under the serving pool's split plan (sweep_cases)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     out = {}
@@ -377,6 +418,7 @@ def width_phase(s1_state: dict, seed: int) -> dict:
         out[f"{quant}/{quant} live {reach}"] = step_cases(w, quant, 2, g, live=reach, t_pad=reach + 64)
         for b in (2, 4):
             out[f"{quant}/{quant} rows B={b}"] = rowwise_cases(w, quant, b, g)
+        out[f"{quant}/{quant} rows B=8 sweep {PLAN_SWEEP}"] = sweep_cases(w, quant, g)
         torch.cuda.empty_cache()
     return out
 
@@ -1339,6 +1381,380 @@ def stream_v2_phase(pipe, seed: int) -> dict:
             "audio_s": sum(len(f[1]) for f in frags) / sr}
 
 
+# ---------------------------------------------------------------------------
+# serving: the continuous-batching slot pool on K1, the service, HTTP
+# ---------------------------------------------------------------------------
+
+POOL = dict(slots=8, tx_max=512, tp_max=512, max_new=300)  # the service's layout, a 12 s cap a segment
+SEGMENT = 25
+GREEDY = dict(top_k=1, top_p=1.0, temperature=1.0)
+# per-request sampling of the serve_v2 waves: request i takes SERVE_MIX[i % 4]
+SERVE_MIX = [dict(top_k=1), dict(top_k=5, temperature=1.0), dict(top_k=15, temperature=0.7),
+             dict(top_k=5, temperature=0.7)]
+POOL_BAR = 0.05  # relative L2 error of a pool row's K/V against its reference: int8 KV (and W8A8) put it near 0.01
+
+
+def _dequant(kv: torch.Tensor, scales: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """int8 K||V (L, n, 2D) with scales (L, 2, n) -> K, V (L, n, D) f32."""
+    return kv[..., :D].float() * scales[:, 0, :, None], kv[..., D:].float() * scales[:, 1, :, None]
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+@torch.no_grad()
+def pool_layout_phase(pipe) -> dict:
+    """A full-width pool (8 slots, int8 weights and KV, the service's
+    layout) that admits three requests at different steps (10, 7 and 5
+    steps apart), read mid-decode. Each row's mask marks exactly its
+    left-padded phones, its prompt and its generated tokens' slots; its
+    prefix K/V at every layer equals the request's own prefill, and its
+    generated tokens' K/V at layer 0 their projection, within int8's error
+    (POOL_BAR); one K1 launch a pool step. A pool that installs or writes a
+    row at the wrong slots fails here whatever the tokens. Then, with all 8
+    rows installed at different steps, the pool's next step through K1 (its
+    host list of write slots, its plan sweep) is held against the twin on
+    the pool's own cache, mask and inputs (hold_step)."""
+    from gpt_sovits_tpu_torch.infer.continuous import ContinuousBatcher
+
+    m = pipe.s1
+    dev = pipe.device
+    cb = ContinuousBatcher(m, **POOL, **GREEDY, repetition_penalty=pipe.cfg.repetition_penalty,
+                           use_fused=pipe.use_fused_s1, weight_quant=pipe.s1_weight_quant, kv_quant=pipe.s1_kv_quant,
+                           fused_weights=pipe._s1_weights, device=dev)
+    assert cb.use_fused and cb.kv_quant and cb.plan_sweep == PLAN_SWEEP
+    segs = [pipe.preprocess(t, "en")[0] for t in REQUESTS]
+    prompt = pipe.ref.prompt_semantic
+    ds.reset_launch_counts()
+    slots = []
+    for seg, n in zip(segs, (10, 7, 5)):  # admitted at different steps, no eviction in between
+        cb.submit(seg["phones"], seg["bert"], prompt)
+        cb._admit_batch()
+        slots.append(cb._slot_rid.index(cb._next_rid - 1))
+        cb._segment(n)
+    torch.cuda.synchronize()
+    launches = ds.launch_counts()["fused_decode_step"]
+    assert launches == cb.steps_run == 22, (launches, cb.steps_run)
+    st = cb.state
+    scratch, n_p = cb.scratch, len(prompt)
+    rows = []
+    for seg, slot in zip(segs, slots):
+        g, done = int(st.gen_count[slot]), bool(st.done[slot])
+        n_gen = g if done else g - 1  # tokens whose K/V is in the cache
+        n_ph = len(seg["phones"])
+        want = torch.zeros(cb.t_total, dtype=torch.bool, device=dev)
+        want[POOL["tx_max"] - n_ph : POOL["tx_max"]] = True
+        want[POOL["tx_max"] : POOL["tx_max"] + n_p] = True
+        want[scratch : scratch + n_gen] = True
+        assert torch.equal(st.mask[slot] > 0, want), f"slot {slot}: the mask marks other slots than the row's"
+        phones = torch.tensor([seg["phones"]], device=dev)
+        p_ids = torch.from_numpy(prompt[None].astype(np.int64)).to(dev)
+        x_emb = m.embed_text(phones, torch.zeros((1, n_ph, m.cfg.bert_dim), device=dev),
+                             torch.arange(n_ph, device=dev)[None])
+        p_emb = m.embed_audio(p_ids, torch.arange(n_p, device=dev)[None])
+        ones = lambda n: torch.ones((1, n), dtype=torch.bool, device=dev)  # noqa: E731
+        _, k_ref, v_ref = m.prefill(torch.cat([x_emb, p_emb], 1), build_prefix_attn_bias(ones(n_ph), ones(n_p)))
+        idx = torch.nonzero(want[:scratch])[:, 0]
+        k, v = _dequant(st.kv[:, slot, idx], st.kv_scales[:, slot, :, idx])
+        err_prefix = max(_rel(k, k_ref.reshape(L, -1, D)), _rel(v, v_ref.reshape(L, -1, D)))
+        toks = st.tokens[slot, :n_gen]
+        x = m.embed_audio(toks[None], (n_p + torch.arange(n_gen, device=dev))[None])
+        qkv = torch.nn.functional.linear(x, m.h.layers[0].self_attn.in_proj_weight,
+                                         m.h.layers[0].self_attn.in_proj_bias)[0]
+        k, v = _dequant(st.kv[:1, slot, scratch : scratch + n_gen], st.kv_scales[:1, slot, :, scratch : scratch + n_gen])
+        err_gen = max(_rel(k[0], qkv[:, D : 2 * D]), _rel(v[0], qkv[:, 2 * D :]))
+        rows.append({"slot": slot, "tokens": g, "done": done, "err_prefix": err_prefix, "err_generated_l0": err_gen})
+        assert err_prefix < POOL_BAR and err_gen < POOL_BAR, rows[-1]
+    # the pool step alone, all 8 rows live: wall a step (the host's enqueue
+    # rate), device time a step and its kernels
+    for i in range(POOL["slots"] - len(segs)):
+        seg = segs[i % len(segs)]
+        cb.submit(seg["phones"], seg["bert"], prompt)
+    cb._admit_batch()
+    assert all(r is not None for r in cb._slot_rid)
+    # the next step's write slots by the pool's rule (_segment): the token sampled g - 1 steps ago
+    slots = (cb.scratch + np.maximum(cb._count - 1, 0)).tolist()
+    assert len(set(slots)) > 3, slots
+    e_abs, e_rel = hold_step(cb.fused_weights, "int8", st.kv, st.kv_scales, st.mask, st.tok_emb[:, 0].contiguous(),
+                             slots, plan_sweep=cb.plan_sweep)
+    held = {"slots": slots, "plan": ds.step_plan(max(slots), True, cb.plan_sweep), "max_abs_err": e_abs,
+            "rel_err": e_rel}
+    step = profile_steps(lambda i: cb._segment(1), steps=25)
+    del cb, st
+    torch.cuda.empty_cache()
+    return {"launches": launches, "steps": 22, "rows": rows, "bar": POOL_BAR, "step_vs_twin": held, "step_b8": step}
+
+
+def generate_at_pool_layout(pipe, seg: dict, prompt: np.ndarray) -> np.ndarray:
+    """Greedy `generate` through K1 at B=1 on one segment, laid out as the
+    pool lays a row out (phones left-padded to tx_max, prompt right-padded
+    to tp_max), so that K1's split plan is the pool's."""
+    dev = pipe.device
+    tx, tp, n_ph = POOL["tx_max"], POOL["tp_max"], len(seg["phones"])
+    phones = torch.zeros((1, tx), dtype=torch.long, device=dev)
+    phones[0, tx - n_ph :] = torch.tensor(seg["phones"], device=dev)
+    prompt_t = torch.zeros((1, tp), dtype=torch.long, device=dev)
+    prompt_t[0, : len(prompt)] = torch.from_numpy(prompt.astype(np.int64)).to(dev)
+    out = generate(
+        pipe.s1, phones, torch.tensor([n_ph], device=dev), torch.zeros((1, tx, pipe.s1.cfg.bert_dim), device=dev),
+        prompt_t, torch.tensor([len(prompt)], device=dev), None, max_new_tokens=POOL["max_new"], **GREEDY,
+        repetition_penalty=pipe.cfg.repetition_penalty, use_fused_kernel=True, weight_quant=pipe.s1_weight_quant,
+        kv_cache_quant=pipe.s1_kv_quant, fused_weights=pipe._s1_weights,
+    )
+    return out.tokens[0, : int(out.lengths[0])].cpu().numpy()
+
+
+def k1_reference_tokens(pipe, seg: dict, prompt: np.ndarray) -> np.ndarray:
+    """One segment decoded greedily at B=1 by the pool's rule, written out
+    apart from the pool: the prefill at the pool's layout, the first logits
+    from the plain decode step on the f32 rows, the rows quantized once,
+    then K1 steps (the pool's split plan) with the mask from before each
+    update, and filter_logits with the pipeline's penalty. `generate` takes
+    its first logits from K1 instead, so a near-tie can part it from the
+    pool at token 0."""
+    m, dev = pipe.s1, pipe.device
+    cfg = m.cfg
+    eos = cfg.eos_id
+    tx, tp, max_new = POOL["tx_max"], POOL["tp_max"], POOL["max_new"]
+    scratch = tx + tp
+    t_total = -(-(scratch + 1 + max_new) // 512) * 512
+    n_ph, n_p = len(seg["phones"]), len(prompt)
+    phones = torch.zeros((1, tx), dtype=torch.long, device=dev)
+    phones[0, tx - n_ph :] = torch.tensor(seg["phones"], device=dev)
+    prompt_t = torch.zeros((1, tp), dtype=torch.long, device=dev)
+    prompt_t[0, :n_p] = torch.from_numpy(prompt.astype(np.int64)).to(dev)
+    ar_x, ar_p = torch.arange(tx, device=dev)[None], torch.arange(tp, device=dev)[None]
+    x_valid, p_valid = ar_x >= tx - n_ph, ar_p < n_p
+    kw = dict(top_k=1, top_p=1.0, temperature=1.0, repetition_penalty=pipe.cfg.repetition_penalty)
+    with torch.no_grad():
+        x_emb = m.embed_text(phones, torch.zeros((1, tx, cfg.bert_dim), device=dev),
+                             torch.clamp(ar_x - (tx - n_ph), min=0)) * x_valid[..., None]
+        p_emb = m.embed_audio(prompt_t, ar_p) * p_valid[..., None]
+        _, k, v = m.prefill(torch.cat([x_emb, p_emb], 1), build_prefix_attn_bias(x_valid, p_valid))
+        pad = t_total - scratch
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)).contiguous()
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)).contiguous()
+        valid = torch.cat([x_valid, p_valid, torch.zeros((1, pad), dtype=torch.bool, device=dev)], 1)
+        last = prompt_t[:, n_p - 1 : n_p]
+        logits = m.decode_step(m.embed_audio(last, torch.full_like(last, n_p - 1)), k, v, valid, scratch).float()
+        kv, kv_s = ds.quantize_kv_cache(torch.cat([k.reshape(L, 1, t_total, D), v.reshape(L, 1, t_total, D)],
+                                                  -1).to(torch.bfloat16))
+        mask = valid.float()
+        presence = torch.zeros((1, cfg.vocab_size), dtype=torch.bool, device=dev)
+        presence[0, prompt_t[0, :n_p]] = True
+        presence[0, eos] = False
+        head = m.ar_predict_layer.weight.float()
+        logits[:, eos] = float("-inf")
+        tok = filter_logits(logits, presence, **kw).argmax(-1)
+        toks, c = [int(tok)], 1
+        while True:
+            presence[0, tok] = True
+            emb = m.embed_audio(tok[:, None], torch.tensor([[n_p + c - 1]], device=dev))
+            y = ds.fused_decode_step(emb[:, 0].contiguous(), pipe._s1_weights, kv, mask, scratch + c - 1, kv_s,
+                                     num_heads=H, plan_sweep=scratch + max_new)[0]
+            mask[0, scratch + c - 1] = 1.0
+            logits = torch.nn.functional.linear(y, head)
+            if c < EOS_MASK_WARMUP_STEPS:
+                logits[:, eos] = float("-inf")
+            tok = filter_logits(logits, presence, **kw).argmax(-1)
+            if int(logits.argmax(-1)) == eos or int(tok) == eos or c >= max_new:
+                return np.asarray(toks)
+            toks.append(int(tok))
+            c += 1
+
+
+def agreement(a: np.ndarray, b: np.ndarray) -> float:
+    n = min(len(a), len(b))
+    return float((a[:n] == b[:n]).sum() / max(len(a), len(b), 1))
+
+
+def serve_v2_phase(pipe, seed: int):
+    """The continuous service on the v2ProPlus pipeline: the pool layout
+    check (pool_layout_phase), then 12 requests from threads in three waves
+    of 4 (REQUESTS, SERVE_MIX sampling, a seed each). Held: each request's
+    int16 audio is finite and its tokens x 2 x the hop long plus the
+    silences; K1's launches, counted in the CUDA code, equal the pool's
+    steps; the pool held more than one live row at once; each greedy
+    request's tokens agree >= 0.9 on each segment with `generate` through
+    K1 at B=1 at the pool's layout and with a B=1 K1 decode by the pool's
+    own rule (k1_reference_tokens); one sampled, seeded request sent again
+    alone gives the same tokens (K1's split plan is fixed per pool, so co-tenants do not change
+    a row's rounding). Returns (record, service): the service stays up for
+    the http phase."""
+    from gpt_sovits_tpu_torch.serve.continuous_service import ContinuousTTSService
+
+    layout = pool_layout_phase(pipe)
+    emit({"phase": "serve_v2", "event": "pool_layout", **layout})
+    t0 = time.perf_counter()
+    svc = ContinuousTTSService(pipe, segment=SEGMENT, **POOL)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    hop = 2 * int(np.prod(pipe.s2.cfg.upsample_rates))
+    sr = pipe.mel_cfg.sampling_rate
+    silence = int(sr * pipe.cfg.fragment_interval)
+    reqs = [(REQUESTS[i % len(REQUESTS)], SERVE_MIX[i % len(SERVE_MIX)], seed + 200 + i) for i in range(12)]
+
+    def one(i, out):
+        text, sampling, s = reqs[i]
+        t = time.perf_counter()
+        job = svc.submit(text, "en", seed=s, **sampling)
+        _, audio = svc.result(job, timeout=300)
+        out[i] = (job, audio, time.perf_counter() - t)
+
+    ds.reset_launch_counts()
+    steps0, svc.cb.peak_live = svc.cb.steps_run, 0
+    res: dict = {}
+    waves = []
+    for w in range(3):
+        t = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(i, res)) for i in range(4 * w, 4 * w + 4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t
+        assert not any(th.is_alive() for th in threads) and all(i in res for i in range(4 * w, 4 * w + 4)), w
+        audio_s = sum(len(res[i][1]) for i in range(4 * w, 4 * w + 4)) / sr
+        waves.append({"wall_s": wall, "audio_s": audio_s, "audio_s_per_s": audio_s / wall})
+    while svc.cb.pending:  # the scheduler's last pass
+        time.sleep(0.01)
+    launches = ds.launch_counts()["fused_decode_step"]
+    steps = svc.cb.steps_run - steps0
+    assert launches == steps > 0, (launches, steps)
+    assert svc.cb.peak_live > 1, svc.cb.peak_live
+    segments = 0
+    for i, (job, audio, _) in res.items():
+        n_tok = [len(job.tokens[r]) for r in job.rids]
+        segments += len(n_tok)
+        assert audio.dtype == np.int16 and audio.shape == (sum(n_tok) * hop + (len(n_tok) - 1) * silence,), (i, n_tok)
+        assert np.isfinite(audio.astype(np.float32)).all()
+    prompt = pipe.ref.prompt_semantic
+    teacher, vs_generate = {}, {}
+    for i, (text, sampling, _) in enumerate(reqs):
+        if sampling.get("top_k") == 1:
+            job = res[i][0]
+            teacher[i] = [agreement(job.tokens[r], k1_reference_tokens(pipe, sg, prompt))
+                          for r, sg in zip(job.rids, job.segments)]
+            vs_generate[i] = [agreement(job.tokens[r], generate_at_pool_layout(pipe, sg, prompt))
+                              for r, sg in zip(job.rids, job.segments)]
+            assert min(teacher[i]) >= 0.9 and min(vs_generate[i]) >= 0.9, (i, teacher[i], vs_generate[i])
+    # co-tenancy: a sampled, seeded one-segment request again, alone
+    i_alone = next(i for i, (text, smp, _) in enumerate(reqs) if smp.get("top_k") != 1 and len(res[i][0].rids) == 1)
+    text, sampling, s = reqs[i_alone]
+    alone = svc.submit(text, "en", seed=s, **sampling)
+    svc.result(alone, timeout=300)
+    shared = res[i_alone][0]
+    same = all(np.array_equal(alone.tokens[a], shared.tokens[b]) for a, b in zip(alone.rids, shared.rids))
+    assert same, "a seeded request's tokens changed with its co-tenants"
+    lat = sorted(r[2] for r in res.values())
+    total_wall = sum(w["wall_s"] for w in waves)
+    rec = {"setup_s": setup_s, "requests": len(res), "segments": segments, "pool_steps": steps, "launches": launches,
+           "peak_live": svc.cb.peak_live, "latency_s": {"median": float(np.median(lat)), "max": lat[-1]},
+           "waves": waves, "audio_s_per_s": sum(w["audio_s"] for w in waves) / total_wall,
+           "greedy_agreement": teacher, "generate_agreement": vs_generate, "cotenancy_same_tokens": same,
+           "tokens": {i: [len(r[0].tokens[x]) for x in r[0].rids] for i, r in res.items()},
+           "max_memory_GB": torch.cuda.max_memory_allocated() / 1e9}
+    return rec, svc
+
+
+def _http(method: str, url: str, payload: dict | None = None, timeout: float = 300):
+    data = json.dumps(payload).encode() if payload is not None else None
+    req = urllib.request.Request(url, data=data, method=method, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _riff_ok(body: bytes, streamed: bool = False) -> bool:
+    """A RIFF/WAVE header whose data length is the body's (0 when streamed)."""
+    if len(body) < 44 or body[:4] != b"RIFF" or body[8:12] != b"WAVE":
+        return False
+    n = struct.unpack("<I", body[40:44])[0]
+    return n == 0 and len(body) > 44 if streamed else n == len(body) - 44 == struct.unpack("<I", body[4:8])[0] - 36
+
+
+def http_phase(pipe, svc, seed: int, tmp: str) -> dict:
+    """`serve(TTSService(pipe, continuous=svc), port=0)`: 4 concurrent POST
+    /tts answer 200 with a RIFF header whose data length matches; one GET
+    /tts?streaming_mode=true answers a streamed RIFF; text_lang=zh (not
+    ported) answers 400. The server is shut down before the phase ends."""
+    from gpt_sovits_tpu_torch.serve.api import TTSService, serve, wav_bytes
+
+    ref = str(Path(tmp) / "ref_v2.wav")
+    Path(ref).write_bytes(wav_bytes((reference_wav(seed) * 32767).astype(np.int16), 32000))
+    srv = serve(TTSService(pipe, continuous=svc), port=0)
+    base = "http://%s:%d" % srv.server_address
+    try:
+        out: dict = {}
+
+        def post(i):
+            t = time.perf_counter()
+            code, body = _http("POST", base + "/tts", {"text": REQUESTS[i % len(REQUESTS)], "text_lang": "en",
+                                                       "ref_audio_path": ref, "seed": seed + 300 + i})
+            out[i] = (code, body, time.perf_counter() - t)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        assert all(i in out and out[i][0] == 200 and _riff_ok(out[i][1]) for i in range(4)), \
+            {i: (out[i][0], out[i][1][:200]) for i in out}
+        q = urllib.parse.urlencode({"text": REQUESTS[1], "text_lang": "en", "ref_audio_path": ref, "seed": seed,
+                                    "streaming_mode": "true"})
+        t = time.perf_counter()
+        code_s, body_s = _http("GET", base + "/tts?" + q)
+        stream_s = time.perf_counter() - t
+        assert code_s == 200 and _riff_ok(body_s, streamed=True), (code_s, body_s[:200])
+        code_zh, body_zh = _http("POST", base + "/tts", {"text": "我在用iPhone工作", "text_lang": "zh",
+                                                         "ref_audio_path": ref})
+        assert code_zh == 400 and b"not ported" in body_zh, (code_zh, body_zh)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    audio_s = sum((len(out[i][1]) - 44) / 2 for i in range(4)) / pipe.mel_cfg.sampling_rate
+    return {"posts": [out[i][0] for i in range(4)], "latency_s": [out[i][2] for i in range(4)], "wall_s": wall,
+            "audio_s_per_s": audio_s / wall, "stream": {"code": code_s, "bytes": len(body_s), "s": stream_s},
+            "zh": code_zh}
+
+
+def http_v4_phase(pipe, seed: int, tmp: str) -> dict:
+    """One POST /tts through the v4 pipeline's batch branch answers 200
+    with a RIFF header whose data length matches."""
+    from gpt_sovits_tpu_torch.serve.api import TTSService, serve, wav_bytes
+
+    ref = str(Path(tmp) / "ref_v4.wav")
+    Path(ref).write_bytes(wav_bytes((reference_wav(seed) * 32767).astype(np.int16), 32000))
+    srv = serve(TTSService(pipe), port=0)
+    try:
+        t = time.perf_counter()
+        code, body = _http("POST", "http://%s:%d/tts" % srv.server_address, {
+            "text": V4_REQUESTS[0], "text_lang": "en", "ref_audio_path": ref,
+            "prompt_text": "This is the reference voice speaking clearly.", "prompt_lang": "en", "seed": seed,
+            "text_split_method": "cut0"})
+        wall = time.perf_counter() - t
+        assert code == 200 and _riff_ok(body), (code, body[:300])
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    return {"code": code, "wall_s": wall, "audio_s": (len(body) - 44) / 2 / 48000}
+
+
+def serve_case(g: torch.Generator) -> dict:
+    """serve_v2 on its own (the broken copies' check): a full-width
+    v2ProPlus pipeline from seed 0, its reference, then serve_v2_phase."""
+    pipe = build_pipeline(0)
+    pipe.set_ref_audio(reference_wav(0), sr=32000)
+    rec, svc = serve_v2_phase(pipe, 0)
+    svc.close()
+    return rec
+
+
 def kernel_times(seed: int) -> dict:
     """Device ms of K2 (one DiT block's three calls), K4, K5 and K3 at the
     main path's shapes, B = 1 and 4, with body_ms and helper_ms; of K1's
@@ -1457,8 +1873,15 @@ def main(argv=None) -> int:
     assert agree >= 0.9, agree
     emit({"phase": "path", "launches": launches, "max_memory_GB": torch.cuda.max_memory_allocated() / 1e9})
     emit({"phase": "stream_v2", **stream_v2_phase(pipe, args.seed)})
+    serve_rec, svc = serve_v2_phase(pipe, args.seed)
+    try:
+        emit({"phase": "serve_v2", **serve_rec})
+        with tempfile.TemporaryDirectory(prefix="gsv_smoke_") as tmp:
+            emit({"phase": "http", **http_phase(pipe, svc, args.seed, tmp)})
+    finally:
+        svc.close()
 
-    del pipe
+    del pipe, svc
     torch.cuda.empty_cache()
 
     # v4: the int8 DiT kernels at v4 shapes, then the full-width v4 path
@@ -1479,6 +1902,8 @@ def main(argv=None) -> int:
     emit({"phase": "path_v4", "launches": launches4, "cfm_calls": n_cfm,
           "max_memory_GB": torch.cuda.max_memory_allocated() / 1e9})
     emit({"phase": "cfm_teacher", **cfm_teacher_phase(pipe4, args.seed)})
+    with tempfile.TemporaryDirectory(prefix="gsv_smoke_") as tmp:
+        emit({"phase": "http_v4", **http_v4_phase(pipe4, args.seed, tmp)})
     del pipe4
     torch.cuda.empty_cache()
 
@@ -1511,10 +1936,11 @@ def main(argv=None) -> int:
     kernels = [{
         "name": name, "route": "cuda", "source": KERNEL_SRC, "replaces": REPLACES,
         "launches": launches[name], "launches_v4": launches4[name], "launches_v3": launches3[name],
+        "launches_serve": serve_rec["launches"],
         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"], "timer": r["timer"],
         "config": "int8 weights + int8 KV, B=1, live 745 of 1024, one launch a 24-layer step; launches over the "
-                  "v2 (launches), v4 and v3 paths",
+                  "v2 (launches), v4 and v3 paths, and over serve_v2's waves (the 8-slot pool, one launch a pool step)",
     }]
     helpers = {"qdense_int8": "row_quant", "qkv_rope_int8": "row_quant", "flash_attn_int8": "v_quant"}
     for name in ("qdense_int8", "qkv_rope_int8", "flash_attn_int8"):

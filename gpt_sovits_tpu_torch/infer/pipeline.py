@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import os
 import re
 import time
 from typing import Optional
@@ -178,6 +179,12 @@ class RefCache:
     prompt_phones: Optional[list] = None  # phone ids of the reference text (v3/v4)
     raw_wav: Optional[np.ndarray] = None  # the reference as given, for the v3/v4 prompt mel
     raw_sr: int = 0
+    # auxiliary references (aux_ref_audio_paths, TTS.py:1098-1109): their
+    # specs and sv embs, and ge, the mean timbre of the main and auxiliary
+    # references, each encoded at its own length
+    aux_specs: Optional[list] = None  # of (Tr_i, spec_channels)
+    aux_sv_embs: Optional[list] = None
+    ge: Optional[np.ndarray] = None  # (1, 1, gin)
 
 
 @dataclasses.dataclass
@@ -272,6 +279,17 @@ class TTSPipeline:
         self._fea_ref_cache = None
         self.last_cfm_batch: list = []
 
+    def recover(self):
+        """Error recovery after a failed request (TTS.py:1352-1363): drop the
+        reference and the v3/v4 prompt-feature cache, and on a card release
+        the allocator's cached blocks (where the JAX package clears its jit
+        caches)."""
+        self.ref = None
+        if self.v3 is not None:
+            self._fea_ref_cache = None
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
     # ------------------------------------------------------------------
     # reference audio
     # ------------------------------------------------------------------
@@ -294,9 +312,13 @@ class TTSPipeline:
         return spec.float().cpu().numpy(), sv_emb
 
     @torch.no_grad()
-    def set_ref_audio(self, wav, sr: Optional[int] = None, ref_text: Optional[str] = None, ref_lang: str = "en"):
+    def set_ref_audio(self, wav, sr: Optional[int] = None, ref_text: Optional[str] = None, aux_wavs=None,
+                      ref_lang: str = "en"):
         """wav: path or float array. Extracts and caches prompt features;
-        v3/v4 also need the reference's transcript `ref_text`."""
+        v3/v4 also need the reference's transcript `ref_text`. aux_wavs:
+        auxiliary references, paths or (wav, sr) pairs, whose timbre the v2
+        family averages with the main one's (missing paths are skipped, as
+        the reference does, TTS.py:1106)."""
         if isinstance(wav, str):
             wav, sr = load_wav(wav)
         if sr is None:
@@ -311,8 +333,29 @@ class TTSPipeline:
         ssl = self.hubert(torch.from_numpy(wav16[None]).to(self.device))
         codes = (self.v3.model if self.v3 is not None else self.s2).extract_latent(ssl)
         spec, sv_emb = self._ref_spec_sv(wav, sr)
+        aux_specs, aux_svs = [], []
+        for aux in aux_wavs or []:
+            if isinstance(aux, str):
+                if not os.path.exists(aux):
+                    continue
+                aux = load_wav(aux)
+            a_spec, a_sv = self._ref_spec_sv(*aux)
+            aux_specs.append(a_spec)
+            aux_svs.append(a_sv)
+        ge = None
+        if aux_specs and self.s2 is not None:
+            dev = self.device
+            ges = [
+                self.s2.compute_ge_masked(
+                    torch.from_numpy(s[None]).to(dev), torch.tensor([s.shape[0]], device=dev),
+                    torch.from_numpy(e[None]).to(dev) if e is not None else None,
+                ).float().cpu().numpy()
+                for s, e in zip([spec] + aux_specs, [sv_emb] + aux_svs)
+            ]
+            ge = np.mean(ges, axis=0, dtype=np.float32)
         self.ref = RefCache(prompt_semantic=codes[0].cpu().numpy(), refer_spec=spec, sv_emb=sv_emb,
-                            raw_wav=np.asarray(wav, np.float32), raw_sr=sr)
+                            raw_wav=np.asarray(wav, np.float32), raw_sr=sr, aux_specs=aux_specs or None,
+                            aux_sv_embs=aux_svs or None, ge=ge)
         if ref_text:
             self.ref.prompt_phones = self._g2p_segment(ref_text, ref_lang)[0]
         return self.ref
@@ -573,22 +616,24 @@ class TTSPipeline:
         )
         return out, tx_max
 
-    def _s2_launch(self, batch, s1_state, n_max: int, *, speed):
+    def _s2_launch(self, batch, s1_state, n_max: int, *, speed, ref: Optional[RefCache] = None):
         """S2 at the bucketed width of the longest row (the JAX package's
         non-eager choice; its eager full-width dispatch hides a host-link
-        round trip that a locally attached card does not have)."""
+        round trip that a locally attached card does not have), voiced by
+        `ref` (default: the current reference)."""
         out, tx_max = s1_state
         b = len(batch)
         dev = self.device
-        ref = self.ref
+        ref = self.ref if ref is None else ref
         codes = out.tokens[:, : _next_bucket(n_max)]
         refer_spec = torch.from_numpy(np.repeat(ref.refer_spec[None], b, axis=0)).to(dev)
         refer_lens = torch.full((b,), ref.refer_spec.shape[0], dtype=torch.long, device=dev)
         sv = torch.from_numpy(np.repeat(ref.sv_emb[None], b, axis=0)).to(dev) if ref.sv_emb is not None else None
+        ge = torch.from_numpy(np.repeat(ref.ge, b, axis=0)).to(dev) if ref.ge is not None else None
         z, ge = self.s2.decode_latent(
             codes, out.lengths, torch.from_numpy(phones_right(batch, tx_max)).to(dev),
             torch.tensor([len(s["phones"]) for s in batch], dtype=torch.long, device=dev),
-            refer_spec, refer_lens, speed=speed, sv_emb=sv,
+            refer_spec, refer_lens, speed=speed, sv_emb=sv, ge=ge,
         )
         wav = self._dec(z.to(self._voc_dtype), g=ge.to(self._voc_dtype))
         return _wav_to_i16(wav), out.lengths

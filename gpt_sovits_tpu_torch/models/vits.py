@@ -207,10 +207,14 @@ class SynthesizerTrn(nn.Module):
     # -- inference ------------------------------------------------------------
 
     def decode_latent(self, codes, codes_lengths, text, text_lengths, refer_spec, refer_lengths, *,
-                      speed: float = 1.0, sv_emb=None):
+                      speed: float = 1.0, sv_emb=None, ge=None):
         """JAX `decode` minus the vocoder, without prior noise (what the
-        pipeline runs) -> (z * y_mask (B,T,inter), ge (B,1,gin))."""
-        ge = self.compute_ge_masked(refer_spec, refer_lengths, sv_emb)
+        pipeline runs) -> (z * y_mask (B,T,inter), ge (B,1,gin)). A given
+        `ge` (B,1,gin), such as the mean over auxiliary references that
+        `set_ref_audio(aux_wavs=...)` keeps, replaces the timbre of the
+        reference batch."""
+        if ge is None:
+            ge = self.compute_ge_masked(refer_spec, refer_lengths, sv_emb)
         ge_for_enc = self.ge_to512(ge) if self.cfg.is_pro else ge
         quantized = self.decode_codes(codes).transpose(1, 2)
         y_mask = sequence_mask(codes_lengths * 2, quantized.shape[2])

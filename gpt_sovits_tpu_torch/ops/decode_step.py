@@ -413,6 +413,20 @@ def step_splits(n_valid: int, kv_int8: bool) -> tuple[int, int]:
     return r, n_split
 
 
+def step_plan(n_valid: int, kv_int8: bool, plan_sweep=None) -> tuple[int, int]:
+    """(slot_r, n_split) of a step whose sweep is n_valid: slot_r is
+    step_splits' choice for plan_sweep (default n_valid), n_split the splits
+    of 32 x slot_r slots that cover n_valid. The kernel adds a split's
+    partials in split order and a split of masked slots adds exact zeros,
+    so with slot_r fixed a row's result does not depend on the other rows'
+    slots: a continuous-batching pool passes its longest sweep as
+    plan_sweep."""
+    if plan_sweep is None or plan_sweep < n_valid:
+        plan_sweep = n_valid
+    slot_r, _ = step_splits(plan_sweep, kv_int8)
+    return slot_r, max(1, -(-n_valid // (32 * slot_r)))
+
+
 def _check_step_dims(d: int, f: int, num_heads: int):
     if (d, f, num_heads) != STEP_DIMS:
         raise ValueError(f"the step kernel is built for (D, F, heads) = {STEP_DIMS}, got {(d, f, num_heads)}")
@@ -429,7 +443,7 @@ def check_step_request(device, d: int, f: int, num_heads: int, n_valid: int, kv_
     step_splits(n_valid, kv_int8)
 
 
-def _step_cuda(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads):
+def _step_cuda(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads, plan_sweep=None):
     """The whole step in one launch of the persistent kernel
     (gsv_decode_step), which also writes the new token's K/V into the cache."""
     slots = _check_step(x, weights, kv_cache, mask, write_idx, kv_scales)
@@ -461,7 +475,7 @@ def _step_cuda(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads):
     qkv = torch.empty((b, 3 * d), **f32)
     ctx, attn, y2 = (torch.empty((b, d), **f32) for _ in range(3))
     hdn = torch.empty((b, f), **f32)
-    slot_r, splits = step_splits(max(slots), int8_kv)
+    slot_r, splits = step_plan(max(slots), int8_kv, plan_sweep)
     ptrs = lambda keys: (ctypes.c_void_p * len(keys))(*(weights[k].data_ptr() for k in keys))  # noqa: E731
     stream = _stream(x)
     rc = _lib().gsv_decode_step(
@@ -477,15 +491,18 @@ def _step_cuda(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads):
     return _result(h, kv_cache, kv_scales)
 
 
-def fused_decode_step(x, weights, kv_cache, mask, write_idx, kv_scales=None, *, num_heads: int = 16):
+def fused_decode_step(x, weights, kv_cache, mask, write_idx, kv_scales=None, *, num_heads: int = 16,
+                      plan_sweep=None):
     """Returns (hidden (B, D) f32, kv_cache) -- plus kv_scales in int8-KV
     mode -- with row i's new K||V written at its slot: write_idx, an int for
     every row or a (B,) integer tensor or sequence (a tensor on the card is
-    read to the host once, to size the attention's splits). Weights as built
-    by `stack_weights_from_params`. CUDA tensors run the whole-step kernel;
-    CPU tensors run the plain twins."""
+    read to the host once, to size the attention's splits; a list is not).
+    Weights as built by `stack_weights_from_params`. plan_sweep: the sweep
+    the kernel's split plan is chosen for (step_plan); the twins have no
+    splits. CUDA tensors run the whole-step kernel; CPU tensors run the
+    plain twins."""
     if _route(x):
-        return _step_cuda(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads)
+        return _step_cuda(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads, plan_sweep)
     return _step_plain(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads)
 
 
