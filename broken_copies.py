@@ -1,17 +1,18 @@
 """Copies of the port with one fault planted in a CUDA kernel (K1's whole
 step in `csrc/decode_step.cu`, K6 `csrc/snake_aa.cu` and its plan in
 `ops/snake_aa.py`, K3, K4's path and the s8 GEMM of K2/K3/K4 in
-`csrc/qmatmul.cu` and its plan in `ops/qmatmul.py`, K5 `csrc/qflash.cu`) or
-in the continuous-batching pool that drives K1 (`infer/continuous.py`),
-each of which must fail chip_smoke.py's check of that kernel or path on
-the card.
+`csrc/qmatmul.cu` and its plan in `ops/qmatmul.py`, K5 `csrc/qflash.cu`),
+in the continuous-batching pool that drives K1 (`infer/continuous.py`) or
+in the pipeline's zh BERT features (`infer/pipeline.py`), each of which
+must fail chip_smoke.py's check of that kernel or path on the card.
 
     python3 broken_copies.py        # one CUDA card; exits non-zero if a copy passes its check
 
 Each copy is gpt_sovits_tpu_torch/ and chip_smoke.py under a temporary
 directory outside the checkout, with one line of one source replaced; its
 checks (chip_smoke.k1_case, k1_rows_case, snake_case, k3_case, k4_case,
-k5_case or gemm_case at a main-path shape, k1_sweep_case, serve_case) run in a child process there, which builds the copy's kernels. The
+k5_case or gemm_case at a main-path shape, k1_sweep_case, serve_case,
+path_zh_case) run in a child process there, which builds the copy's kernels. The
 same checks run first on the unbroken sources and must pass. One JSON line
 per copy and check: the check's outcome and the end of its assertion
 message.
@@ -35,6 +36,7 @@ QMM_PY = "gpt_sovits_tpu_torch/ops/qmatmul.py"
 QFLASH = "gpt_sovits_tpu_torch/csrc/qflash.cu"
 DS_PY = "gpt_sovits_tpu_torch/ops/decode_step.py"
 POOL = "gpt_sovits_tpu_torch/infer/continuous.py"
+PIPE = "gpt_sovits_tpu_torch/infer/pipeline.py"
 CHECKS = {
     # K1's whole step at full width, random and peaked inputs (step_cases)
     "k1_int8": "c.k1_case('int8', 1, g)",
@@ -63,6 +65,9 @@ CHECKS = {
     # the continuous-batching pool on K1 at full width: serve_v2 (pool layout and the pool's
     # own step against the twin, waves, greedy bar)
     "serve": "c.serve_case(g)",
+    # the zh requests through the v2ProPlus pipeline with BERT at full width: path_zh (every g2p call's
+    # BERT rows non-zero exactly on its zh phones, each seen by S1's bert_proj)
+    "path_zh": "c.path_zh_case(g)",
 }
 # (name, source, the line as it is, the broken line, checks that must fail)
 COPIES = [
@@ -127,6 +132,8 @@ COPIES = [
     ("K1 plan: slot_r for the step's own sweep, the split count for the plan's", DS_PY,
      "    return slot_r, max(1, -(-n_valid // (32 * slot_r)))",
      "    return step_splits(n_valid, kv_int8)[0], max(1, -(-n_valid // (32 * slot_r)))", ("k1_sweep_int8",)),
+    ("pipeline: zh runs' BERT features replaced by zeros", PIPE,
+     '        if lang == "zh" and self.bert is not None and word2ph is not None:', "        if False:", ("path_zh",)),
 ]
 
 

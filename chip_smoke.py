@@ -1,7 +1,7 @@
 """On-card smoke test of the PyTorch/CUDA port: builds the CUDA kernels,
 holds each against its plain PyTorch twin at the main path's shapes, drives
-the full-width v2ProPlus, v4 and v3 zero-shot pipelines through them, and
-prints one JSON line per phase.
+the full-width v2ProPlus (English, and zh/auto with BERT features), v4 and
+v3 zero-shot pipelines through them, and prints one JSON line per phase.
 
     python3 chip_smoke.py            # one CUDA card; exits non-zero on any failure
     python3 chip_smoke.py --parent smoke_tree/parent   # also time K1-K6 on an earlier tree's kernels
@@ -13,10 +13,21 @@ fresh token with large keys in a masked hole, step_cases), widths (the
 whole step at B = 2..7 in both modes, random and peaked, held only; at the
 longest prefix it takes; at B = 2 and 4 with one write slot a row,
 rows at different steps, rowwise_cases; at B = 8 under the serving pool's
-split plan, sweep_cases), path (v2ProPlus: set_ref_audio +
-several `run` requests with random full-width weights made from --seed;
-launch counts read from the CUDA code: one whole-step launch an S1 step), teacher (a greedy S1
-trajectory through the kernel vs the plain twin), stream_v2 (one
+split plan, sweep_cases), bert (a full-width BertEncoder, 24 x 1024,
+16 heads, FFN 4096, built on the card from --seed: layer -3 of one zh
+sentence against the same weights' f32 CPU run, relative L2 < 1e-3; the
+forward's device ms at 32 and 128 tokens), path (v2ProPlus with that BERT
+and the port's tokenizer over a 21128-entry vocabulary: set_ref_audio +
+several English `run` requests with random full-width weights made from
+--seed; launch counts read from the CUDA code: one whole-step launch an S1
+step), teacher (a greedy S1 trajectory through the kernel vs the plain
+twin), path_zh (set_ref_audio with a zh transcript; a zh request with
+numbers, a date and sandhi words, a zh-English one in "zh" mode and an
+auto one with ja, ko and yue sentences; every g2p call's BERT rows
+non-zero exactly on its zh phones, each of them seen by S1's bert_proj;
+one K1 launch an S1 step; then g2pW on a synthetic bundle, its graph on
+the card's ONNX executor, whose reading of 长 the request takes),
+stream_v2 (one
 run_streaming request: a fragment per segment, each of its tokens' length
 plus the silence, and the time to the first), serve_v2 (the continuous
 service on that pipeline: an 8-slot pool read mid-decode, every row's mask
@@ -26,8 +37,8 @@ against the twin, and that step profiled; then
 lengths, one K1 launch a pool step, more than one live row, greedy
 agreement >= 0.9 with `generate` and with a B=1 K1 decode by the pool's
 rule, a seeded request's tokens alone as among co-tenants), http (the
-api_v2 server over the service: 4 concurrent POST /tts, a streamed GET, an
-unported language answering 400); then for v4: kernels (K2, K3,
+api_v2 server over the service: 4 concurrent POST /tts, a streamed GET, a zh
+and an auto POST answering 200, a made-up language 400); then for v4: kernels (K2, K3,
 K5 at dim 1024, 16 x 64 heads, ff 2048, T=1024 with 1000 real frames, B in
 {1, 4}, on inputs where a mask or rotary fault shows; K3 also with a q scale
 and at T = 1000, K5 at T = 1000 and 2048; device time split into the GEMM or
@@ -447,13 +458,14 @@ def profile_steps(fn, steps: int = 5) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def build_pipeline(seed: int):
+def build_pipeline(seed: int, bert=None, tokenizer=None):
     torch.manual_seed(seed)  # random full-width weights, from the seed
     s1 = T2SDecoder(S1Config())
     s2 = SynthesizerTrn(s2_config_for_version("v2ProPlus"))
     hub = HubertEncoder()
     sv = ERes2NetV2()
-    return TTSPipeline(s1_model=s1, s2_model=s2, hubert_model=hub, sv_model=sv)
+    return TTSPipeline(s1_model=s1, s2_model=s2, hubert_model=hub, sv_model=sv, bert_model=bert,
+                       bert_tokenizer=tokenizer)
 
 
 def reference_wav(seed: int, sr: int = 32000, sec: float = 5.0) -> np.ndarray:
@@ -570,6 +582,255 @@ def teacher_phase(pipe, steps: int = 96) -> float:
             mask[:, tx + tp - 1 if s == 0 else widx] = 1.0
             tok_emb = m.embed_audio(tk[:, None], torch.tensor([[tp + s]], device=dev))
     return float(np.mean(agree))
+
+
+# ---------------------------------------------------------------------------
+# BERT (chinese-roberta's shape, f32) and the zh path: phases bert, path_zh
+# ---------------------------------------------------------------------------
+
+BERT_VOCAB = 21128
+BERT_BAR = 1e-3  # relative L2 of layer -3, card vs CPU, both f32 (TF32 off)
+BERT_SENTENCE = "今天是二零二四年三月五日，银行行长说你好好想想。"
+ZH_REQUESTS = [
+    ("今天是2024年3月5日，气温25度。银行行长说：你好好想想，不要不要！我们一起去看看展览馆吧。一个一个来，第1名得了98.5分。",
+     "zh"),
+    ("我在用iPhone工作，这个App很好用。Let's go to the park, 好不好？", "zh"),
+    ("こんにちは、元気ですか。안녕하세요, 반갑습니다. 佢哋今日去咗飲茶。", "auto"),
+]
+ZH_REF_TEXT = "这是参考音频的文本，说得很清楚。"
+G2PW_SENTENCE = "他长得很高，长江很长。"  # 长: chang2 in the lexicon, zhang3 from the synthetic bundle
+
+
+def bert_vocab() -> list[str]:
+    """21128 entries laid out as chinese-roberta's vocab.txt: [PAD] 0,
+    [unused1-99], [UNK] 100, [CLS] 101, [SEP] 102, [MASK] 103; then ASCII and
+    CJK punctuation, the hanzi of the port's zh_pinyin table and their "##"
+    continuations, then the other CJK ideographs up to the size."""
+    from gpt_sovits_tpu_torch.text.chinese import _lexicon
+
+    words, chars = _lexicon()
+    han_set = set(chars) | {c for w in words for c in w}
+    han = sorted(han_set)
+    rest = [chr(cp) for cp in range(0x4E00, 0xA000) if chr(cp) not in han_set]
+    vocab = (["[PAD]"] + [f"[unused{i}]" for i in range(1, 100)] + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+             + list("!\"#$%&'()*+,-./:;<=>?@[\\]^_`{|}~…，。！？、：；") + han + ["##" + c for c in han] + rest)
+    vocab = vocab[:BERT_VOCAB]
+    assert len(vocab) == BERT_VOCAB and len(set(vocab)) == BERT_VOCAB, len(vocab)
+    return vocab
+
+
+def build_bert(seed: int):
+    """Full-width BertEncoder(BertConfig()) (24 x 1024, 16 heads, FFN 4096)
+    built on the card with weights from the seed, and the port's tokenizer
+    over bert_vocab()."""
+    from gpt_sovits_tpu_torch.models.bert import BertConfig, BertEncoder
+    from gpt_sovits_tpu_torch.text.bert_tokenizer import BertTokenizer
+
+    torch.manual_seed(seed)
+    with torch.device("cuda"):
+        bert = BertEncoder(BertConfig()).eval()
+    return bert, BertTokenizer(bert_vocab())
+
+
+def bert_bound_ms(cfg, t: int) -> tuple[float, str]:
+    """The least time of a forward at t tokens: its weights and activations
+    read once and the hidden states written once, or its f32 operations."""
+    d, f, n = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    weights = n * (4 * d * d + 2 * d * f) + (t + 2) * d  # the embedding rows it reads
+    ops = n * (2 * t * (4 * d * d + 2 * d * f) + 4 * t * t * d)
+    return bound_ms(4 * (weights + (n + 1) * t * d), ops, "f32")
+
+
+def bert_phase(bert, tok, seed: int) -> dict:
+    """Layer -3 of one zh sentence on the card against the same weights'
+    f32 CPU run; the forward's device and wall ms at 32 and 128 tokens."""
+    from gpt_sovits_tpu_torch.models.bert import BertEncoder
+    from gpt_sovits_tpu_torch.text.chinese import normalize
+
+    ids = torch.from_numpy(tok(normalize(BERT_SENTENCE))["input_ids"])
+    assert ids.shape[1] > 10 and (ids[0, 1:-1] != 100).all(), ids  # no [UNK]: the vocabulary covers the sentence
+    cpu = BertEncoder(bert.cfg).eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in bert.state_dict().items()})
+    with torch.no_grad():
+        got = bert(ids.cuda())[-3].cpu()
+        want = cpu(ids)[-3]
+    rel = float((got - want).norm() / want.norm())
+    assert got.shape == (1, ids.shape[1], 1024) and torch.isfinite(got).all() and rel < BERT_BAR, rel
+    del cpu
+    g = torch.Generator().manual_seed(seed)
+    times = {}
+    for t in (32, 128):
+        x = torch.randint(1000, BERT_VOCAB, (1, t), generator=g).cuda()
+        with torch.no_grad():
+            ms, timer, _ = device_ms(lambda i: bert(x), 10)
+            wall = cuda_ms(lambda i: bert(x), 10)
+            evs = device_events(lambda i: bert(x), 5) or []
+        b, by = bert_bound_ms(bert.cfg, t)
+        top = sorted(evs, key=lambda ev: -ev.self_device_time_total)[:6]
+        times[t] = {"device_ms": ms, "timer": timer, "wall_ms": wall, "bound_ms": b, "bound_by": by,
+                    "launches": sum(ev.count for ev in evs) / 5,
+                    "top_kernels": {ev.key[:80]: {"ms": ev.self_device_time_total / 1e3 / 5, "launches": ev.count / 5}
+                                    for ev in top}}
+    return {"tokens": int(ids.shape[1]), "layer_m3_rel_l2": rel, "bar": BERT_BAR, "ms": times,
+            "tf32": torch.backends.cuda.matmul.allow_tf32, "nvidia_smi": card_line()}
+
+
+def write_g2pw_bundle(d: Path) -> None:
+    """The synthetic G2PWModel bundle of tests/test_g2pw.py: polyphones 长
+    (CH2, ZH3) and 行 (X2, H2), a classifier graph that picks ZH3 for 长 and
+    X2 for 行, written with the port's encode_model."""
+    from gpt_sovits_tpu_torch.utils.onnx_lite import Graph, Node, encode_model
+
+    d.mkdir(parents=True)
+    (d / "POLYPHONIC_CHARS.txt").write_text("长\tCH2\n长\tZH3\n行\tX2\n行\tH2", encoding="utf-8")
+    (d / "MONOPHONIC_CHARS.txt").write_text("好\tHAO3", encoding="utf-8")
+    (d / "bopomofo_to_pinyin_wo_tune_dict.json").write_text(
+        json.dumps({"CH": "chang", "ZH": "zhang", "X": "xing", "H": "hang", "HAO": "hao"}), encoding="utf-8")
+    (d / "char_bopomofo_dict.json").write_text("{}", encoding="utf-8")
+    (d / "config.py").write_text("use_mask = True\nuse_char_phoneme = False\n", encoding="utf-8")
+    table = np.array([[0.0, 0.0, 5.0, 0.0], [0.0, 0.0, 0.0, 5.0]], np.float32)  # 行 -> X2, 长 -> ZH3
+    g = Graph(
+        nodes=[Node("Gather", ["table", "char_ids"], ["logits"], {"axis": 0}),
+               Node("Mul", ["logits", "phoneme_mask"], ["masked"], {}),
+               Node("Softmax", ["masked"], ["probs"], {"axis": -1})],
+        initializers={"table": table},
+        inputs=["input_ids", "token_type_ids", "attention_mask", "phoneme_mask", "char_ids", "position_ids"],
+        outputs=["probs"],
+    )
+    (d / "g2pW.onnx").write_bytes(encode_model(g))
+
+
+def zh_rows(text: str, language: str, version: str) -> np.ndarray:
+    """For each phone of `_g2p_segment(text, language)`, whether it comes
+    from a zh run."""
+    import re
+
+    from gpt_sovits_tpu_torch.text.cleaner import clean_text
+    from gpt_sovits_tpu_torch.text.lang_segmenter import runs_for_language
+
+    runs = runs_for_language(re.sub(r" {2,}", " ", text), language)
+    return np.concatenate([np.full(len(clean_text(r["text"], r["lang"], version)[0]), r["lang"] == "zh")
+                           for r in runs] or [np.zeros(0, bool)])
+
+
+class recorded_g2p:
+    """Within the block, every `_g2p_segment` call of the pipeline and the
+    rows that S1's bert_proj sees (a forward hook) are recorded."""
+
+    def __init__(self, pipe):
+        self.pipe = pipe
+
+    def __enter__(self):
+        self.calls, self.proj_rows = [], []
+        inner = self.pipe._g2p_segment
+
+        def g2p(text, language):
+            out = inner(text, language)
+            self.calls.append((text, language, out))
+            return out
+
+        self.pipe._g2p_segment = g2p
+        self.hook = self.pipe.s1.bert_proj.register_forward_hook(
+            lambda mod, args, out: self.proj_rows.append(args[0].detach().float().cpu().reshape(-1, args[0].shape[-1])))
+        return self
+
+    def __exit__(self, *exc):
+        del self.pipe._g2p_segment
+        self.hook.remove()
+
+    def check(self) -> dict:
+        """Each call's BERT rows are non-zero exactly on its zh phones, and
+        S1's bert_proj saw each of those rows."""
+        zh_total = 0
+        for text, language, (ids, bert, _) in self.calls:
+            want = zh_rows(text, language, self.pipe.version)
+            got = np.abs(bert).sum(-1) > 0
+            assert got.shape == want.shape == (len(ids),) and (got == want).all(), (text, language, got, want)
+            zh_total += int(want.sum())
+        seen = torch.cat(self.proj_rows)
+        seen = seen[seen.abs().sum(-1) > 0]
+        assert zh_total > 0 and len(seen) >= zh_total, (zh_total, len(seen))
+        for _, _, (_, bert, _) in self.calls:
+            for row in torch.from_numpy(bert[np.abs(bert).sum(-1) > 0]):
+                assert (seen == row).all(-1).any(), "a zh row of BERT features never reached bert_proj"
+        return {"g2p_calls": len(self.calls), "zh_phones": zh_total, "bert_proj_nonzero_rows": int(len(seen))}
+
+
+def zh_request(pipe, i: int, text: str, lang: str, seed: int) -> dict:
+    """One `run` request of path_zh: its int16 audio of the length its S1
+    tokens give (as `path` checks it), its RTF and phases."""
+    hop_up = int(np.prod(pipe.s2.cfg.upsample_rates))
+    sr = pipe.mel_cfg.sampling_rate
+    t0 = time.perf_counter()
+    sr_out, audio = pipe.run(text, lang, seed=seed + i, max_sec=MAX_SEC)
+    wall = time.perf_counter() - t0
+    assert sr_out == sr and audio.dtype == np.int16, (sr_out, audio.dtype)
+    n_seg = len(pipe.last_tokens)
+    expect = sum(n * 2 * hop_up for n in pipe.last_tokens.values()) + (n_seg - 1) * int(sr * pipe.cfg.fragment_interval)
+    assert audio.shape == (expect,) and np.isfinite(audio.astype(np.float32)).all(), (audio.shape, expect)
+    return {"phase": "path_zh", "request": i, "language": lang, "segments": n_seg,
+            "tokens": list(pipe.last_tokens.values()), "audio_s": len(audio) / sr, "wall_s": wall,
+            "rtf": wall / (len(audio) / sr), "phases_s": pipe.last_timing}
+
+
+def g2pw_request(pipe, i: int, seed: int, tmp: str) -> dict:
+    """G2PW_SENTENCE with the synthetic g2pW bundle enabled (its graph on
+    the card's ONNX executor): every 长 takes the bundle's zhang3, so the
+    phones differ from the lexicon's; the bundle is disabled afterwards."""
+    from gpt_sovits_tpu_torch.text import g2pw
+    from gpt_sovits_tpu_torch.text.chinese import _g2pw_segment
+    from gpt_sovits_tpu_torch.text.cleaner import clean_text
+
+    bundle = Path(tmp) / "G2PWModel"
+    write_g2pw_bundle(bundle)
+    plain = clean_text(G2PW_SENTENCE, "zh")[0]
+    model = g2pw.enable(str(bundle), pipe.bert_tokenizer).model
+    runs = []
+    inner = model.run
+    model.run = lambda feeds: runs.append(1) or inner(feeds)
+    try:
+        rec = zh_request(pipe, i, G2PW_SENTENCE, "zh", seed)
+        hanzi = G2PW_SENTENCE.replace("，", "").replace("。", "")
+        chang = [r for c, r in zip(hanzi, _g2pw_segment(hanzi)) if c == "长"]
+        taken = clean_text(G2PW_SENTENCE, "zh")[0]
+    finally:
+        g2pw.disable()
+    assert chang == ["zhang3"] * 3 and taken != plain and "ang3" in taken, (chang, taken, plain)
+    assert model.device.type == "cuda" and runs, (model.device, runs)
+    return {**rec, "g2pw_readings_chang": chang, "onnx_runs_on_card": len(runs)}
+
+
+def path_zh_phase(pipe, seed: int, tmp: str) -> dict:
+    """zh, zh-English ("zh" mode) and auto requests on the v2ProPlus pipeline
+    with BERT, after set_ref_audio with a zh transcript; then one with g2pW's
+    synthetic bundle on the card's ONNX executor. K1 launches are counted
+    from 0 just before the requests and read just after."""
+    t0 = time.perf_counter()
+    pipe.set_ref_audio(reference_wav(seed), sr=32000, ref_text=ZH_REF_TEXT)
+    torch.cuda.synchronize()
+    assert pipe.ref.prompt_phones, pipe.ref
+    emit({"phase": "path_zh", "event": "set_ref_audio", "s": time.perf_counter() - t0,
+          "prompt_phones": len(pipe.ref.prompt_phones)})
+    reset_all_launch_counts()
+    with counted_steps() as steps, recorded_g2p(pipe) as rec:
+        out = [zh_request(pipe, i, text, lang, seed) for i, (text, lang) in enumerate(ZH_REQUESTS)]
+        out.append(g2pw_request(pipe, len(out), seed, tmp))
+    launches = ds.launch_counts()
+    for r in out:
+        emit(r)
+    assert any(r["segments"] > 1 for r in out), "no zh request ran a batch of several segments"
+    return {**launches, "s1_steps": steps.n, **rec.check()}
+
+
+def path_zh_case(g: torch.Generator) -> dict:
+    """path_zh on its own (the broken copies' check): a full-width
+    v2ProPlus pipeline with BERT from seed 0, then path_zh_phase."""
+    bert, tok = build_bert(0)
+    pipe = build_pipeline(0, bert, tok)
+    with tempfile.TemporaryDirectory(prefix="gsv_smoke_") as tmp:
+        rec = path_zh_phase(pipe, 0, tmp)
+    check_s1_launches(rec, rec["s1_steps"])
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1679,8 +1940,9 @@ def _riff_ok(body: bytes, streamed: bool = False) -> bool:
 def http_phase(pipe, svc, seed: int, tmp: str) -> dict:
     """`serve(TTSService(pipe, continuous=svc), port=0)`: 4 concurrent POST
     /tts answer 200 with a RIFF header whose data length matches; one GET
-    /tts?streaming_mode=true answers a streamed RIFF; text_lang=zh (not
-    ported) answers 400. The server is shut down before the phase ends."""
+    /tts?streaming_mode=true answers a streamed RIFF; a zh and an auto POST
+    answer 200 with RIFF bodies; a made-up text_lang answers 400. The server
+    is shut down before the phase ends."""
     from gpt_sovits_tpu_torch.serve.api import TTSService, serve, wav_bytes
 
     ref = str(Path(tmp) / "ref_v2.wav")
@@ -1711,16 +1973,24 @@ def http_phase(pipe, svc, seed: int, tmp: str) -> dict:
         code_s, body_s = _http("GET", base + "/tts?" + q)
         stream_s = time.perf_counter() - t
         assert code_s == 200 and _riff_ok(body_s, streamed=True), (code_s, body_s[:200])
-        code_zh, body_zh = _http("POST", base + "/tts", {"text": "我在用iPhone工作", "text_lang": "zh",
-                                                         "ref_audio_path": ref})
-        assert code_zh == 400 and b"not ported" in body_zh, (code_zh, body_zh)
+        t = time.perf_counter()
+        code_zh, body_zh = _http("POST", base + "/tts", {"text": ZH_REQUESTS[0][0], "text_lang": "zh",
+                                                         "ref_audio_path": ref, "seed": seed})
+        zh_s = time.perf_counter() - t
+        assert code_zh == 200 and _riff_ok(body_zh), (code_zh, body_zh[:300])
+        code_auto, body_auto = _http("POST", base + "/tts", {"text": ZH_REQUESTS[2][0], "text_lang": "auto",
+                                                             "ref_audio_path": ref, "seed": seed})
+        assert code_auto == 200 and _riff_ok(body_auto), (code_auto, body_auto[:300])
+        code_xx, body_xx = _http("POST", base + "/tts", {"text": "qapla", "text_lang": "tlh", "ref_audio_path": ref})
+        assert code_xx == 400 and b"not supported" in body_xx, (code_xx, body_xx)
     finally:
         srv.shutdown()
         srv.server_close()
     audio_s = sum((len(out[i][1]) - 44) / 2 for i in range(4)) / pipe.mel_cfg.sampling_rate
     return {"posts": [out[i][0] for i in range(4)], "latency_s": [out[i][2] for i in range(4)], "wall_s": wall,
             "audio_s_per_s": audio_s / wall, "stream": {"code": code_s, "bytes": len(body_s), "s": stream_s},
-            "zh": code_zh}
+            "zh": {"code": code_zh, "s": zh_s, "audio_s": (len(body_zh) - 44) / 2 / pipe.mel_cfg.sampling_rate},
+            "auto": code_auto, "unknown_language": code_xx}
 
 
 def http_v4_phase(pipe, seed: int, tmp: str) -> dict:
@@ -1865,13 +2135,20 @@ def main(argv=None) -> int:
     del s1_state
     torch.cuda.empty_cache()
 
-    pipe = build_pipeline(args.seed)
+    bert, tok = build_bert(args.seed)
+    emit({"phase": "bert", **bert_phase(bert, tok, args.seed)})
+    pipe = build_pipeline(args.seed, bert, tok)
+    del bert
     launches = path_phase(pipe, args.seed)  # counted from 0 just before the path's requests
     check_s1_launches(launches, launches["s1_steps"])
     agree = teacher_phase(pipe)
     emit({"phase": "teacher", "greedy_agreement": agree})
     assert agree >= 0.9, agree
     emit({"phase": "path", "launches": launches, "max_memory_GB": torch.cuda.max_memory_allocated() / 1e9})
+    with tempfile.TemporaryDirectory(prefix="gsv_smoke_") as tmp:
+        launches_zh = path_zh_phase(pipe, args.seed, tmp)  # counted from 0 just before the zh requests
+    check_s1_launches(launches_zh, launches_zh["s1_steps"])
+    emit({"phase": "path_zh", "launches": launches_zh, "max_memory_GB": torch.cuda.max_memory_allocated() / 1e9})
     emit({"phase": "stream_v2", **stream_v2_phase(pipe, args.seed)})
     serve_rec, svc = serve_v2_phase(pipe, args.seed)
     try:
@@ -1935,12 +2212,13 @@ def main(argv=None) -> int:
     name = "fused_decode_step"
     kernels = [{
         "name": name, "route": "cuda", "source": KERNEL_SRC, "replaces": REPLACES,
-        "launches": launches[name], "launches_v4": launches4[name], "launches_v3": launches3[name],
-        "launches_serve": serve_rec["launches"],
+        "launches": launches[name], "launches_zh": launches_zh[name], "launches_v4": launches4[name],
+        "launches_v3": launches3[name], "launches_serve": serve_rec["launches"],
         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"], "timer": r["timer"],
         "config": "int8 weights + int8 KV, B=1, live 745 of 1024, one launch a 24-layer step; launches over the "
-                  "v2 (launches), v4 and v3 paths, and over serve_v2's waves (the 8-slot pool, one launch a pool step)",
+                  "v2 (launches), zh, v4 and v3 paths, and over serve_v2's waves (the 8-slot pool, one launch a pool "
+                  "step)",
     }]
     helpers = {"qdense_int8": "row_quant", "qkv_rope_int8": "row_quant", "flash_attn_int8": "v_quant"}
     for name in ("qdense_int8", "qkv_rope_int8", "flash_attn_int8"):

@@ -5,8 +5,9 @@ gpt_sovits_tpu/infer/pipeline.py: `TTSPipeline.set_ref_audio`, `run` and
   * set_ref_audio: reference wav -> 16 kHz CNHuBERT features -> VQ prompt
     semantic tokens; linear spectrogram for timbre; v2Pro/v2ProPlus also
     the ERes2NetV2 speaker embedding of the 16 kHz audio
-  * preprocess: cut method -> g2p -> phone ids (English; BERT features are
-    zeros for every non-zh language, so BERT is not on this path)
+  * preprocess: cut method -> language runs (text/lang_segmenter.py) -> g2p
+    -> phone ids; BERT features from chinese-roberta's layer -3 for zh runs
+    (with a BERT and its tokenizer given), zeros for every other run
   * run: length-sorted greedy bucketing, batched S1 decode, one S2 decode
     per bucket, inter-fragment silence, original order restored, int16
 
@@ -60,6 +61,7 @@ from gpt_sovits_tpu_torch.dsp.audio_io import load_wav, resample
 from gpt_sovits_tpu_torch.dsp.mel import denorm_spec, mel_spectrogram, norm_spec, spectrogram
 from gpt_sovits_tpu_torch.dsp.sola import sola_stitch
 from gpt_sovits_tpu_torch.models.apbwe import APNetBWE, super_resolve
+from gpt_sovits_tpu_torch.models.bert import phone_level_features
 from gpt_sovits_tpu_torch.models.bigvgan import BigVGAN
 from gpt_sovits_tpu_torch.models.dit import serving_dit
 from gpt_sovits_tpu_torch.models.eres2net import kaldi_fbank
@@ -68,7 +70,8 @@ from gpt_sovits_tpu_torch.models.v3 import SynthesizerTrnV3, cfm_inference
 from gpt_sovits_tpu_torch.models.vits import Generator, SynthesizerTrn
 from gpt_sovits_tpu_torch.ops.decode_step import stack_weights_from_params
 from gpt_sovits_tpu_torch.text import cleaned_text_to_sequence
-from gpt_sovits_tpu_torch.text.cleaner import check_language, clean_text
+from gpt_sovits_tpu_torch.text.cleaner import clean_text
+from gpt_sovits_tpu_torch.text.lang_segmenter import runs_for_language
 from gpt_sovits_tpu_torch.text.segmentation import get_method, split_big_text
 from gpt_sovits_tpu_torch.utils.config import InferenceConfig, MelConfig
 from gpt_sovits_tpu_torch.utils.metrics import PhaseTimer, ThroughputMeter
@@ -213,6 +216,8 @@ class TTSPipeline:
         s2_model: Optional[SynthesizerTrn],
         hubert_model,
         sv_model=None,
+        bert_model=None,  # models/bert.py BertEncoder (chinese-roberta), run in f32; None: zh BERT features are zeros
+        bert_tokenizer=None,  # text/bert_tokenizer.py BertTokenizer over the same vocabulary
         mel_cfg: MelConfig = MelConfig(),
         infer_cfg: InferenceConfig = InferenceConfig(),
         v3_bundle: Optional[V3Bundle] = None,  # v4: the CFM path replaces S2 (s2_model may be None)
@@ -228,6 +233,8 @@ class TTSPipeline:
         self.s2 = s2_model.to(self.device).eval() if s2_model is not None else None
         self.hubert = hubert_model.to(self.device).eval()
         self.sv = sv_model.to(self.device).eval() if sv_model is not None else None
+        self.bert = bert_model.to(self.device, torch.float32).eval() if bert_model is not None else None
+        self.bert_tokenizer = bert_tokenizer
         self.mel_cfg = mel_cfg
         self.cfg = infer_cfg
         self.v3 = v3_bundle
@@ -313,7 +320,7 @@ class TTSPipeline:
 
     @torch.no_grad()
     def set_ref_audio(self, wav, sr: Optional[int] = None, ref_text: Optional[str] = None, aux_wavs=None,
-                      ref_lang: str = "en"):
+                      ref_lang: str = "auto"):
         """wav: path or float array. Extracts and caches prompt features;
         v3/v4 also need the reference's transcript `ref_text`. aux_wavs:
         auxiliary references, paths or (wav, sr) pairs, whose timbre the v2
@@ -365,16 +372,41 @@ class TTSPipeline:
     # ------------------------------------------------------------------
 
     def _g2p_segment(self, text: str, language: str):
-        """One segment -> (phone ids, bert features (T, 1024) zeros, norm)."""
-        check_language(language)
+        """One segment -> (phone ids, bert features (T, 1024), norm).
+
+        Language modes route as the reference's (TextPreprocessor.py:122-170):
+        a named CJK mode means mixed with English (latin runs go to the en
+        g2p, CJK runs take the declared language), `all_*` modes still peel
+        latin off, `en` sends the whole text through English, and `auto`
+        labels each run (text/lang_segmenter.py)."""
         text = re.sub(r" {2,}", " ", text)
-        phones, _, norm = clean_text(text, "en", self.version)
-        ids = cleaned_text_to_sequence(phones, self.version)
-        return ids, np.zeros((len(ids), BERT_DIM), np.float32), norm
+        phones_all: list[int] = []
+        bert_chunks: list[np.ndarray] = []
+        norm_all: list[str] = []
+        for run in runs_for_language(text, language):
+            phones, word2ph, norm = clean_text(run["text"], run["lang"], self.version)
+            ids = cleaned_text_to_sequence(phones, self.version)
+            phones_all.extend(ids)
+            bert_chunks.append(self._bert_features(norm, word2ph, len(ids), run["lang"]))
+            norm_all.append(norm)
+        bert = np.concatenate(bert_chunks, axis=0) if bert_chunks else np.zeros((0, BERT_DIM), np.float32)
+        return phones_all, bert, "".join(norm_all)
+
+    @torch.no_grad()
+    def _bert_features(self, norm_text: str, word2ph, n_phones: int, lang: str) -> np.ndarray:
+        """Phone-level BERT features of a zh run: chinese-roberta's layer -3
+        without [CLS]/[SEP], repeated by word2ph; zeros for any other run, and
+        when the tokens and the characters disagree (TextPreprocessor.py:191)."""
+        if lang == "zh" and self.bert is not None and word2ph is not None:
+            ids = torch.from_numpy(self.bert_tokenizer(norm_text, return_tensors="np")["input_ids"]).to(self.device)
+            hidden = self.bert(ids)[-3][0, 1:-1]
+            if len(word2ph) != hidden.shape[0]:  # tokenizer/char mismatch guard
+                return np.zeros((n_phones, BERT_DIM), np.float32)
+            return phone_level_features(hidden, word2ph).float().cpu().numpy()
+        return np.zeros((n_phones, BERT_DIM), np.float32)
 
     def preprocess(self, text: str, language: str, cut_method: str = "cut5"):
         """-> list of {"phones": ids, "bert": (T,1024), "norm_text"} segments."""
-        check_language(language)
         pieces = []
         for chunk in get_method(cut_method)(text.strip()):
             pieces.extend(split_big_text(chunk))
@@ -422,7 +454,7 @@ class TTSPipeline:
     def run(
         self,
         text: str,
-        language: str = "en",
+        language: str = "auto",
         *,
         seed: int = 0,
         cut_method: Optional[str] = None,
@@ -513,7 +545,7 @@ class TTSPipeline:
     def run_streaming(
         self,
         text: str,
-        language: str = "en",
+        language: str = "auto",
         *,
         seed: int = 0,
         cut_method: Optional[str] = None,

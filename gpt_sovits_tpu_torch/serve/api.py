@@ -13,9 +13,10 @@ Endpoints (ref api_v2.py:300-500):
   GET /control             — restart | exit (ref :252-257)
   GET /health              — liveness (addition)
 
-Implementation: a thin standard-library http.server app. Languages the
-port cannot phonemize yet (zh/ja/ko/yue/auto) answer 400, from the
-NotImplementedError of `text/cleaner.py`.
+Implementation: a thin standard-library http.server app. It serves every
+language mode of `TTSService.LANGS` (zh, en, ja, ko, yue, auto and the all_*
+modes; zh with BERT features when the pipeline has a BERT); a `text_lang`
+outside `LANGS` answers 400.
 """
 
 from __future__ import annotations
@@ -321,7 +322,7 @@ class TTSService:
                     return err[0], json.dumps({"message": err[1]}).encode(), "application/json"
                 try:
                     self._ensure_ref(req)
-                except (ValueError, FileNotFoundError, NotImplementedError) as e:
+                except (ValueError, FileNotFoundError) as e:
                     return 400, json.dumps({"message": str(e)}).encode(), "application/json"
                 ref = self.pipeline.ref  # snapshot under the lock
             try:
@@ -337,7 +338,7 @@ class TTSService:
                     seed=int(req["seed"]) if int(req.get("seed", -1)) >= 0 else None,
                     fragment_interval=float(req["fragment_interval"]) if "fragment_interval" in req else None,
                 )
-            except (ValueError, TimeoutError, NotImplementedError) as e:
+            except (ValueError, TimeoutError) as e:
                 return 400, json.dumps({"message": str(e)}).encode(), "application/json"
             return self._pack_audio(req, sr, audio)
 
@@ -375,7 +376,7 @@ class TTSService:
                     sample_steps=int(req["sample_steps"]) if "sample_steps" in req else None,
                     super_sampling=(req.get("super_sampling") in _TRUE) if "super_sampling" in req else None,
                 )
-            except (ValueError, FileNotFoundError, NotImplementedError) as e:
+            except (ValueError, FileNotFoundError) as e:
                 return 400, json.dumps({"message": str(e)}).encode(), "application/json"
             except Exception as e:  # TTS.py:1352-1363 — recover and report
                 self.pipeline.recover()
@@ -443,7 +444,7 @@ _INDEX_HTML = """<!doctype html>
 <p>Zero-shot voice cloning. Reference audio path must be readable by the server.</p>
 <label>Text</label><textarea id="text" rows="4">Hello, this is a test.</textarea>
 <label>Language</label>
-<select id="lang"><option>en</option></select>
+<select id="lang"><option>auto</option><option>en</option><option>zh</option><option>ja</option><option>ko</option></select>
 <label>Reference audio path (3-10 s wav)</label><input id="ref" placeholder="/path/to/ref.wav">
 <label>Reference transcript (optional)</label><input id="ref_text">
 <label>Seed</label><input id="seed" value="42">
@@ -493,7 +494,7 @@ def make_handler(service: TTSService):
             try:
                 gen = service.tts_stream(params)
                 first = next(gen, None)
-            except (ValueError, FileNotFoundError, NotImplementedError) as e:
+            except (ValueError, FileNotFoundError) as e:
                 self._send(400, json.dumps({"message": str(e)}).encode(), "application/json")
                 return
             self.send_response(200)

@@ -107,7 +107,7 @@ class ContinuousTTSService:
     def submit(
         self,
         text: str,
-        language: str = "en",
+        language: str = "auto",
         *,
         speed: float = 1.0,
         ref=None,
@@ -162,7 +162,7 @@ class ContinuousTTSService:
             raise job.error
         return self.pipeline.mel_cfg.sampling_rate, (np.clip(job.audio, -1.0, 1.0) * 32767.0).astype(np.int16)
 
-    def synthesize(self, text: str, language: str = "en", *, timeout: float = 600.0, **kw) -> tuple[int, np.ndarray]:
+    def synthesize(self, text: str, language: str = "auto", *, timeout: float = 600.0, **kw) -> tuple[int, np.ndarray]:
         """Blocking synthesis; the S1 decode shares the pool with concurrent
         callers. `ref` is the RefCache snapshot to voice this request with
         (default: the pipeline's current one; pass the snapshot taken under

@@ -383,3 +383,31 @@ def eres2net_from_jax(params: dict, cfg) -> dict:
     _conv2d(p["layer3_ds"], "layer3_ds", out)
     _aff(p["fuse34"], "fuse34", out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# BERT (chinese-roberta-wwm-ext-large)
+# ---------------------------------------------------------------------------
+
+
+def bert_from_jax(params: dict, cfg) -> dict:
+    """The flax tree of gpt_sovits_tpu/models/bert.py -> the HF `BertModel`
+    names without the pooler (the inverse of that module's
+    `params_from_torch`)."""
+    p = params["params"]
+    out = {
+        "embeddings.word_embeddings.weight": _t(p["word_embeddings"]["embedding"]),
+        "embeddings.position_embeddings.weight": _t(p["position_embeddings"]["embedding"]),
+        "embeddings.token_type_embeddings.weight": _t(p["token_type_embeddings"]["embedding"]),
+    }
+    _ln(p["emb_norm"], "embeddings.LayerNorm", out)
+    for i in range(cfg.num_layers):
+        lp, pre = p[f"layer_{i}"], f"encoder.layer.{i}"
+        for name in ("query", "key", "value"):
+            _dense(lp[name], f"{pre}.attention.self.{name}", out)
+        _dense(lp["attn_out"], f"{pre}.attention.output.dense", out)
+        _ln(lp["attn_norm"], f"{pre}.attention.output.LayerNorm", out)
+        _dense(lp["inter"], f"{pre}.intermediate.dense", out)
+        _dense(lp["output"], f"{pre}.output.dense", out)
+        _ln(lp["out_norm"], f"{pre}.output.LayerNorm", out)
+    return out

@@ -1,6 +1,6 @@
 """The PyTorch port, chip_smoke.py and broken_copies.py stand alone: they
-import with jax and flax blocked, and no file of theirs imports jax, flax or
-the JAX package."""
+import with jax, flax and transformers blocked, and no file of theirs
+imports jax, flax, transformers or the JAX package."""
 
 import ast
 import os
@@ -11,7 +11,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "gpt_sovits_tpu_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "broken_copies.py"]
-BANNED = ("jax", "jaxlib", "flax", "gpt_sovits_tpu")
+BANNED = ("jax", "jaxlib", "flax", "transformers", "gpt_sovits_tpu")
 
 _BLOCKER = """
 import importlib.abc, sys
@@ -27,20 +27,23 @@ mods = [m.name for m in pkgutil.walk_packages(gpt_sovits_tpu_torch.__path__, "gp
 for m in mods:
     importlib.import_module(m)
 import chip_smoke, broken_copies
-assert not any(k.split(".")[0] in {banned!r} for k in sys.modules), [k for k in sys.modules if k.startswith(("jax", "flax"))]
+assert not any(k.split(".")[0] in {banned!r} for k in sys.modules), [k for k in sys.modules if k.startswith(("jax", "flax", "transformers"))]
 print("OK", len(mods), " ".join(mods))
 """
 
 
 def test_imports_with_jax_blocked():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
-    code = _BLOCKER.format(banned={"jax", "jaxlib", "flax", "gpt_sovits_tpu"})
+    code = _BLOCKER.format(banned=set(BANNED))
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.startswith("OK")
-    assert int(res.stdout.split()[1]) >= 28  # every module of the four slices was imported
+    assert int(res.stdout.split()[1]) >= 41  # every module of the five slices was imported
     for mod in ("models.dit", "models.v3", "ops.qmatmul", "ops.qflash", "dsp.sola", "models.bigvgan", "models.apbwe",
-                "ops.snake_aa", "infer.continuous", "serve.continuous_service", "serve.api", "serve.gui_client"):
+                "ops.snake_aa", "infer.continuous", "serve.continuous_service", "serve.api", "serve.gui_client",
+                "models.bert", "text.bert_tokenizer", "text.zh_norm", "text.tone_sandhi", "text.chinese",
+                "text.lang_segmenter", "text.japanese", "text.korean", "text.cantonese", "text.g2pw",
+                "utils.onnx_lite"):
         assert f"gpt_sovits_tpu_torch.{mod}" in res.stdout, mod
 
 

@@ -1,7 +1,9 @@
 """A tiny v2ProPlus TTSPipeline in each package, with the same weights, the
 same 4 s synthetic reference and the same two-segment English text, greedy
 and in f32 on both sides (plain S1 step, bf16/bf16 quant settings, f32
-vocoder)."""
+vocoder). Both have the same 3-layer BERT at hidden 1024 (the width the
+pipelines' zero features assume) and one WordPiece tokenizer, for the zh,
+zh-English and auto requests."""
 
 import jax
 import jax.numpy as jnp
@@ -18,12 +20,18 @@ from gpt_sovits_tpu.models.t2s import T2SDecoder as JT2S
 from gpt_sovits_tpu.models.vits import SynthesizerTrn as JSynth
 from gpt_sovits_tpu.utils import config as jconfig
 from gpt_sovits_tpu_torch.infer.pipeline import TTSPipeline
+from gpt_sovits_tpu_torch.models.bert import BertConfig
 from gpt_sovits_tpu_torch.models.eres2net import ERes2NetConfig, ERes2NetV2
 from gpt_sovits_tpu_torch.models.hubert import HubertConfig, HubertEncoder
 from gpt_sovits_tpu_torch.models.t2s import T2SDecoder
 from gpt_sovits_tpu_torch.models.vits import SynthesizerTrn
+from gpt_sovits_tpu_torch.text.bert_tokenizer import BertTokenizer
+from gpt_sovits_tpu_torch.text.cleaner import clean_text as p_clean
+from gpt_sovits_tpu_torch.text.lang_segmenter import runs_for_language
 from gpt_sovits_tpu_torch.utils import config as pconfig
 from gpt_sovits_tpu_torch.weights import eres2net_from_jax, hubert_from_jax, s1_from_jax, s2_from_jax
+from test_torch_bert import CFG as BERT_CFG
+from test_torch_bert import JBert, JBertConfig, bert_params, port_bert
 
 torch.set_num_threads(1)
 
@@ -41,6 +49,25 @@ MEL = dict(sampling_rate=8000, n_fft=128, win_size=128, hop_size=64, num_mels=13
 INFER = dict(min_ref_sec=0.1, max_ref_sec=30.0, batch_size=4)
 TEXT = "Hello world this is the first segment. And here comes the second one!"
 RUN = dict(seed=3, max_sec=2, top_k=1, cut_method="cut5")
+# (text, language mode): zh with numbers, a date and sandhi words; zh-English
+# in "zh" mode; auto over zh, ja and en runs
+ZH_REQUESTS = [
+    ("今天是2024年3月5日，银行行长说你好。我们一起去看看吧！不要不要，一个一个来。", "zh"),
+    ("我在用iPhone工作，OK吗？这个很好。", "zh"),
+    ("你好世界，今天天气很好。こんにちは、元気ですか。Hello there, my friend.", "auto"),
+]
+ZH_REF_TEXT = "这是参考音频的文本，说得很清楚。"
+
+
+def bert_vocab() -> list[str]:
+    """chinese-roberta's layout ([PAD] 0, [UNK] 100, [CLS] 101, [SEP] 102,
+    [MASK] 103) over the characters of the test texts' zh runs."""
+    chars = set()
+    for text, _ in ZH_REQUESTS + [(ZH_REF_TEXT, "zh")]:
+        chars |= set(p_clean(text, "zh")[2])
+    return ["[PAD]"] + [f"[unused{i}]" for i in range(1, 100)] + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"] + sorted(chars)
+
+
 # int16 output: f32 on both sides, other summation orders through S2 and
 # the vocoder (1e-4 relative at most, test_torch_vits.py) -> a few LSB
 LSB = 8
@@ -78,9 +105,14 @@ def pipes():
     hubp = random_params(jhub, jnp.zeros((1, 800)), seed=2)
     jsv = JSV(JSVConfig(**SV))
     svp = random_params(jsv, jnp.zeros((1, 32, 80)), seed=3)
+    tok = BertTokenizer(bert_vocab())
+    assert len(tok) <= BERT_CFG["vocab_size"]
+    jbert_cfg = JBertConfig(**BERT_CFG)
+    bertp = bert_params(jbert_cfg, seed=4)
     jp = JPipe(
         s1_model=js1, s1_params=s1p, s2_model=js2, s2_params=s2p, hubert_model=jhub, hubert_params=hubp,
-        sv_model=jsv, sv_params=svp, mel_cfg=jconfig.MelConfig(**MEL),
+        sv_model=jsv, sv_params=svp, bert_model=JBert(jbert_cfg), bert_params=bertp, bert_tokenizer=tok,
+        mel_cfg=jconfig.MelConfig(**MEL),
         infer_cfg=jconfig.InferenceConfig(**INFER), use_fused_s1=False, s1_weight_quant="bf16",
         s1_kv_quant="bf16", half=False,
     )
@@ -94,7 +126,8 @@ def pipes():
     sv = ERes2NetV2(ERes2NetConfig(**SV))
     sv.load_state_dict(eres2net_from_jax(np_tree(svp), sv.cfg), strict=True)
     pp = TTSPipeline(
-        s1_model=s1, s2_model=s2, hubert_model=hub, sv_model=sv, mel_cfg=pconfig.MelConfig(**MEL),
+        s1_model=s1, s2_model=s2, hubert_model=hub, sv_model=sv,
+        bert_model=port_bert(bertp, BertConfig(**BERT_CFG)), bert_tokenizer=tok, mel_cfg=pconfig.MelConfig(**MEL),
         infer_cfg=pconfig.InferenceConfig(**INFER), use_fused_s1=False, s1_weight_quant="bf16",
         s1_kv_quant="bf16", half=False, device="cpu",
     )
@@ -147,11 +180,67 @@ def test_device_default_is_cuda(pipes):
         TTSPipeline(s1_model=pp.s1, s2_model=pp.s2, hubert_model=pp.hubert)
 
 
-def test_unported_languages_raise(pipes):
-    _, pp = pipes
-    for lang in ("zh", "ja", "auto"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pp.run("text", lang)
+@pytest.mark.parametrize("req", range(len(ZH_REQUESTS)))
+def test_zh_preprocess_matches_jax(pipes, req):
+    """Identical phones; BERT features allclose at 1e-4; over the whole
+    text, non-zero feature rows exactly on the phones of its zh runs."""
+    jp, pp = pipes
+    text, lang = ZH_REQUESTS[req]
+    segs_j = jp.preprocess(text, lang, "cut5")
+    segs_p = pp.preprocess(text, lang, "cut5")
+    assert [s["phones"] for s in segs_p] == [s["phones"] for s in segs_j]
+    assert [s["norm_text"] for s in segs_p] == [s["norm_text"] for s in segs_j]
+    for sp, sj in zip(segs_p, segs_j):
+        assert sp["bert"].shape == (len(sp["phones"]), 1024)
+        np.testing.assert_allclose(sp["bert"], sj["bert"], rtol=1e-4, atol=1e-4)
+    ids, bert, _ = pp._g2p_segment(text, lang)
+    zh = np.concatenate([np.full(len(p_clean(r["text"], r["lang"])[0]), r["lang"] == "zh")
+                         for r in runs_for_language(text, lang)])
+    assert len(ids) == len(zh) == bert.shape[0] and zh.any() and (req == 0 or not zh.all())
+    np.testing.assert_array_equal(np.abs(bert).sum(-1) > 0, zh)
+
+
+def test_zh_s1_tokens_equal(pipes):
+    jp, pp = pipes
+    text, lang = ZH_REQUESTS[0]
+    segs_j = jp.preprocess(text, lang, "cut5")
+    segs_p = pp.preprocess(text, lang, "cut5")
+    assert len(segs_p) >= 2
+    kw = dict(top_k=1, top_p=1.0, temperature=1.0, repetition_penalty=1.35, max_sec=2)
+    out_j, _ = jp._s1_launch(segs_j, jax.random.PRNGKey(0), **kw)
+    out_p, _ = pp._s1_launch(segs_p, torch.Generator().manual_seed(0), **kw)
+    np.testing.assert_array_equal(out_p.lengths.numpy(), np.asarray(out_j.lengths))
+    np.testing.assert_array_equal(out_p.tokens.numpy(), np.asarray(out_j.tokens))
+
+
+def test_zh_run_returns_audio(pipes):
+    """A zh request (which raised NotImplementedError before the zh frontend
+    was ported) returns audio within LSB of the JAX package's; "auto" is the
+    default language, as in the JAX package."""
+    jp, pp = pipes
+    text, _ = ZH_REQUESTS[0]
+    sr_j, wj = jp.run(text, "zh", **RUN)
+    sr_p, wp = pp.run(text, "zh", **RUN)
+    assert sr_p == sr_j and wp.dtype == np.int16 and wp.shape == wj.shape
+    assert np.abs(wj.astype(np.int32)).max() > 100
+    assert np.abs(wp.astype(np.int32) - wj.astype(np.int32)).max() <= LSB
+    _, wa = pp.run(text, **RUN)
+    np.testing.assert_array_equal(wa, wp)  # auto labels this text zh throughout
+
+
+def test_set_ref_audio_zh_transcript(pipes):
+    """set_ref_audio with a zh transcript (ref_lang defaults to "auto") gives
+    the JAX package's prompt phones."""
+    jp, pp = pipes
+    saved = jp.ref, pp.ref
+    try:
+        wav = np.asarray(pp.ref.raw_wav)
+        jr = jp.set_ref_audio(wav, sr=8000, ref_text=ZH_REF_TEXT)
+        pr = pp.set_ref_audio(wav, sr=8000, ref_text=ZH_REF_TEXT)
+        assert pr.prompt_phones == jr.prompt_phones and pr.prompt_phones
+        np.testing.assert_array_equal(pr.prompt_semantic, jr.prompt_semantic)
+    finally:
+        jp.ref, pp.ref = saved
 
 
 def test_run_streaming_matches_jax_and_run(pipes):

@@ -297,16 +297,22 @@ def test_tts_validation_errors(server):
     assert code == 400 and b"cut99" in body
 
 
-def test_tts_unported_language_is_400(server):
-    """text_lang=zh: the port has no zh frontend yet; the request answers
-    400 with the frontend's message, on the batch and on the streaming
-    route."""
+def test_tts_zh_is_200_unknown_language_is_400(server):
+    """text_lang=zh (and auto) answer 200 with audio on the batch and the
+    streaming route; a text_lang outside LANGS answers 400 from that check."""
     base, ref, _ = server
-    q = urllib.parse.urlencode({"text": "我在用iPhone工作", "text_lang": "zh", "ref_audio_path": ref, "seed": 3})
+    q = urllib.parse.urlencode({"text": "我在用iPhone工作", "text_lang": "zh", "ref_audio_path": ref, "seed": 3,
+                                "max_sec": 2})
     code, body, _ = _get(base + "/tts?" + q)
-    assert code == 400 and b"not ported" in body
+    assert code == 200 and body[:4] == b"RIFF" and struct.unpack("<I", body[40:44])[0] == len(body) - 44 > 0
     code, body, _ = _get(base + "/tts?" + q + "&streaming_mode=true")
-    assert code == 400 and b"not ported" in body
+    assert code == 200 and body[:4] == b"RIFF" and len(body) > 44
+    q = urllib.parse.urlencode({"text": "你好。こんにちは。", "text_lang": "auto", "ref_audio_path": ref, "max_sec": 2})
+    code, body, _ = _get(base + "/tts?" + q)
+    assert code == 200 and body[:4] == b"RIFF"
+    q = urllib.parse.urlencode({"text": "我在用iPhone工作", "text_lang": "tlh", "ref_audio_path": ref})
+    code, body, _ = _get(base + "/tts?" + q)
+    assert code == 400 and b"text_lang: tlh is not supported" in body
 
 
 def test_set_weights_endpoint(server):
@@ -454,8 +460,8 @@ def test_gui_client_core(server, tmp_path):
 
 def test_http_continuous_mode(served, service):
     """api_v2 /tts over a real socket in continuous mode: requests ride the
-    pool and equal the batch path's audio; zh answers 400; an explicit
-    serial decode takes run()."""
+    pool and equal the batch path's audio; zh rides the pool too; an
+    explicit serial decode takes run()."""
     _, pp, ref = served
     srv = serve(TTSService(pp, continuous=service), port=0)
     host, port = srv.server_address
@@ -466,8 +472,9 @@ def test_http_continuous_mode(served, service):
         assert code == 200 and body[:4] == b"RIFF" and service.cb.steps_run > steps
         _, want = pp.run(TEXT, "en", seed=0, max_sec=2)
         np.testing.assert_array_equal(np.frombuffer(body[44:], "<i2"), want)
+        steps = service.cb.steps_run
         code, body, _ = _post(base + "/tts", {"text": "我在用iPhone工作", "text_lang": "zh", "ref_audio_path": ref})
-        assert code == 400 and b"not ported" in body
+        assert code == 200 and body[:4] == b"RIFF" and service.cb.steps_run > steps
         steps = service.cb.steps_run
         code, body, _ = _post(base + "/tts", {"text": TEXT, "text_lang": "en", "ref_audio_path": ref,
                                               "parallel_infer": False, "seed": 1})
@@ -475,3 +482,23 @@ def test_http_continuous_mode(served, service):
     finally:
         srv.shutdown()
         srv.server_close()
+
+
+def test_pool_prefill_carries_zh_bert(served, service):
+    """A zh request's BERT features reach S1's bert_proj through the pool's
+    prefill: some call sees exactly the segment's non-zero rows."""
+    _, pp, _ = served
+    text = "银行行长说你好。"
+    (seg,) = pp.preprocess(text, "zh", pp.cfg.text_split_method)
+    assert np.abs(seg["bert"]).sum(-1).all()
+    seen = []
+    hook = pp.s1.bert_proj.register_forward_hook(lambda mod, args, out: seen.append(args[0].detach().clone()))
+    try:
+        sr, audio = service.synthesize(text, "zh", timeout=300)
+    finally:
+        hook.remove()
+    assert audio.dtype == np.int16 and audio.size > 0
+    want = torch.from_numpy(seg["bert"])
+    n = want.shape[0]
+    assert any(x.shape[-2] >= n and any(torch.equal(row[-n:], want) for row in x.reshape(-1, *x.shape[-2:]))
+               for x in seen), [tuple(x.shape) for x in seen]

@@ -5,10 +5,12 @@ import pytest
 
 from gpt_sovits_tpu.text import cleaned_text_to_sequence as j_seq
 from gpt_sovits_tpu.text.cleaner import clean_text as j_clean
+from gpt_sovits_tpu.text.lang_segmenter import runs_for_language as j_runs
 from gpt_sovits_tpu.text.segmentation import get_method as j_method
 from gpt_sovits_tpu.text.segmentation import split_big_text as j_split
 from gpt_sovits_tpu_torch.text import cleaned_text_to_sequence as p_seq
 from gpt_sovits_tpu_torch.text.cleaner import clean_text as p_clean
+from gpt_sovits_tpu_torch.text.lang_segmenter import runs_for_language as p_runs
 from gpt_sovits_tpu_torch.text.segmentation import get_method as p_method
 from gpt_sovits_tpu_torch.text.segmentation import split_big_text as p_split
 
@@ -70,6 +72,22 @@ def test_split_big_text_equal():
 
 
 @pytest.mark.parametrize("lang", ["zh", "ja", "ko", "yue", "auto", "all_zh"])
-def test_unported_languages_raise(lang):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p_clean("text", lang)
+def test_language_modes_route(lang):
+    """Each mode that raised NotImplementedError before the zh/ja/ko/yue
+    frontends were ported now gives the JAX package's phones: through
+    clean_text directly (`auto` is no clean_text language in either package:
+    both raise ValueError), and run by run through runs_for_language, as the
+    pipeline calls them."""
+    text = "我在用iPhone工作，你好。こんにちは。안녕하세요."
+    if lang == "auto":
+        for clean in (j_clean, p_clean):
+            with pytest.raises(ValueError, match="unknown language"):
+                clean(text, lang)
+    else:
+        assert p_clean(text, lang) == j_clean(text, lang)
+    runs = p_runs(text, lang)
+    assert runs and runs == j_runs(text, lang)
+    for run in runs:
+        got = p_clean(run["text"], run["lang"])
+        assert got == j_clean(run["text"], run["lang"]), run
+        assert p_seq(got[0]) == j_seq(got[0])
