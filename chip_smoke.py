@@ -61,7 +61,21 @@ launch an S1 step), v3_profile (one BigVGAN and one AP-BWE call under the
 profiler), snake_in_call (K6's 109 launches inside one BigVGAN call under
 the profiler, and the device time its twins take in their place), cfm_long
 (one CFM call at T=2560 through K3 -> SDPA -> K4 -> K2 and through the
-twins); gemm_tiles (the s8 GEMM alone at each tile width, K2/K4's and K3's,
+twins); then training on a synthetic corpus of 16 utterances of 4.4-9.2 s
+written to a temporary experiment directory (write_corpus): train_s2
+(run_train_s2 at v2ProPlus, MPD periods to 23, one epoch of 4 steps at
+batch 4, its full checkpoint and the `06`-headed .pth reloaded through the
+port's reader, strict but for enc_q; one G+D step's wall and device time
+under the profiler; one G+D step at B=1 from the trained weights on the
+card, on the CPU and on the CPU in float64, with the same batch, noise and
+segment starts: losses within relative 1e-4, every gradient within relative
+L2 1e-3 of the CPU's or, where it misses, no further from the float64
+gradient than 10x the CPU float32 run's own error and never more than 0.1;
+gradients zero to rounding left out, check_grads) and train_s1 (run_train_s1 at S1Config() with DPO and 4-step
+accumulation: two updates and a checkpoint, then a resumed run's third
+update; a micro-step's time under the profiler; one micro-step at B=1 card
+vs CPU: loss within 1e-5, gradients as S2's; a fixed batch's loss below 0.8x
+its first within 50 updates), K1-K6 counted 0 over both; gemm_tiles (the s8 GEMM alone at each tile width, K2/K4's and K3's,
 beside gemm_plan's choice); with --parent, compare_trees (K2, K4, K5, K3,
 K1's step and K6 for one BigVGAN call timed on the earlier tree's kernels
 and on this tree's, in turns);
@@ -74,6 +88,7 @@ f32), with the card's power limit printed beside them.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import struct
 import subprocess
@@ -138,7 +153,7 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 def device_events(fn, iters: int, attempts: int = 3, complete=None):
     """The device kernels of `iters` calls of fn(i) under torch.profiler
-    (CUPTI), as key_averages() sums them by name. Now and then the profiler
+    (CUPTI), as key_averages() sums them by name (user annotations left out). Now and then the profiler
     returns a window without any device event, or drops a few of them; a
     window that is empty, or that `complete(evs)` finds short, is run again,
     up to `attempts` times in all. None if no window came back whole."""
@@ -150,7 +165,8 @@ def device_events(fn, iters: int, attempts: int = 3, complete=None):
             for i in range(iters):
                 fn(i)
             torch.cuda.synchronize()
-        evs = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
+        evs = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+               and not getattr(ev, "is_user_annotation", False)]  # e.g. Optimizer.step's range, not a kernel
         if evs and (complete is None or complete(evs)):
             return evs
     return None
@@ -434,20 +450,22 @@ def width_phase(s1_state: dict, seed: int) -> dict:
     return out
 
 
-def profile_steps(fn, steps: int = 5) -> dict:
-    """Decode steps under torch.profiler: device time per step by kernel
-    name, and the share of the (unprofiled) wall time the device sat idle
-    (not measured where the profiler saw no device time)."""
+def profile_steps(fn, steps: int = 5, profiled: int | None = None) -> dict:
+    """Steps under torch.profiler: device time per step by kernel name, and
+    the share of the (unprofiled) wall time the device sat idle (not measured
+    where the profiler saw no device time). The wall is the mean of `steps`
+    calls; the profiler window holds `profiled` calls (default `steps`)."""
     wall = cuda_ms(fn, steps)
-    evs = device_events(fn, steps)
+    profiled = profiled or steps
+    evs = device_events(fn, profiled)
     if evs is None:
         return {"wall_ms_per_step": wall, "device_ms_per_step": None, "device_idle_share": None}
     by_name = {}  # kernels whose names share their first 60 characters are added up
     for ev in evs:
         row = by_name.setdefault(ev.key[:60], {"device_ms_per_step": 0.0, "calls_per_step": 0.0})
-        row["device_ms_per_step"] += ev.self_device_time_total / 1e3 / steps
-        row["calls_per_step"] += ev.count / steps
-    busy = sum(ev.self_device_time_total for ev in evs) / 1e3 / steps
+        row["device_ms_per_step"] += ev.self_device_time_total / 1e3 / profiled
+        row["calls_per_step"] += ev.count / profiled
+    busy = sum(ev.self_device_time_total for ev in evs) / 1e3 / profiled
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1]["device_ms_per_step"])[:8])
     return {"wall_ms_per_step": wall, "device_ms_per_step": busy,
             "device_idle_share": max(0.0, 1.0 - busy / wall), "top_kernels": top}
@@ -2025,6 +2043,263 @@ def serve_case(g: torch.Generator) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phases: train_s2, train_s1 (the fine-tune recipe: S2, then S1)
+# ---------------------------------------------------------------------------
+
+# seconds a synthetic utterance: every 50-frame S2 bucket and 50-token S1
+# bucket holds whole batches of 4, so an epoch is 4 batches of 4 in both
+TRAIN_DURATIONS = (4.4,) * 4 + (6.4,) * 4 + (9.2,) * 8
+TRAIN_B = 4
+GRAD_BAR = 1e-3  # relative L2 of each parameter's gradient, card vs CPU, both float32
+# A gradient that misses GRAD_BAR is held against a float64 run of the same
+# step on the CPU: the card's error may be at most CPU_ERR_FACTOR times the
+# CPU float32 run's own error, and never more than ERR_CAP.
+CPU_ERR_FACTOR = 10.0
+ERR_CAP = 0.1
+# A gradient that is zero in exact arithmetic (a key bias: the softmax is
+# shift-invariant) is rounding noise in float32. It is left out where its
+# float64 norm is below ZERO_TO_ROUNDING x its float32 norm on the CPU.
+ZERO_TO_ROUNDING = 1e-6
+
+
+def write_corpus(exp_dir, durations=TRAIN_DURATIONS, *, seed: int = 0, sr: int = 32000, ssl_dim: int = 768,
+                 bert_dim: int = 1024, sv_dim: int = 20480, n_codes: int = 1024, sv: bool = True) -> list[str]:
+    """A synthetic prepared experiment in the layout train/data.py reads:
+    2-name2text.txt (12 English phones a second), 6-name2semantic.tsv (25
+    codes a second, runs of 1-3 repeats over 64 of the n_codes, as semantic
+    codes repeat), 3-bert, 4-cnhubert (50 frames a second), 5-wav32k
+    (a tone in noise, 16-bit) and, with `sv`, 7-sv_cn. -> the names."""
+    from gpt_sovits_tpu_torch.dsp.audio_io import save_wav
+    from gpt_sovits_tpu_torch.text import get_symbols
+
+    exp = Path(exp_dir)
+    for sub in ("3-bert", "4-cnhubert", "5-wav32k") + (("7-sv_cn",) if sv else ()):
+        (exp / sub).mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    phone_set = get_symbols("v2")[5:64]
+    active = rng.choice(n_codes, size=min(64, n_codes), replace=False)
+    texts, sems, names = [], [], []
+    for i, sec in enumerate(durations):
+        name = f"utt{i:03d}.wav"
+        n_ph = int(sec * 12)
+        phones = [phone_set[j] for j in rng.integers(0, len(phone_set), n_ph)]
+        texts.append(f"{name}\t{' '.join(phones)}\t{' '.join(['1'] * n_ph)}\tsynthetic utterance {i}\n")
+        codes = np.repeat(rng.choice(active, size=int(sec * 25)), rng.integers(1, 4, int(sec * 25)))[: int(sec * 25)]
+        sems.append(f"{name}\t{' '.join(str(int(c)) for c in codes)}\n")
+        t = np.arange(int(sec * sr)) / sr
+        wav = 0.3 * np.sin(2 * np.pi * (110 + 20 * i) * t) + 0.02 * rng.standard_normal(t.shape)
+        save_wav(str(exp / "5-wav32k" / name), wav.astype(np.float32), sr)
+        np.save(exp / "4-cnhubert" / f"{name}.npy", (rng.standard_normal((int(sec * 50), ssl_dim)) * 0.5).astype(np.float16))
+        np.save(exp / "3-bert" / f"{name}.npy", (rng.standard_normal((n_ph, bert_dim)) * 0.3).astype(np.float16))
+        if sv:
+            np.save(exp / "7-sv_cn" / f"{name}.npy", rng.standard_normal(sv_dim).astype(np.float16))
+        names.append(name)
+    (exp / "2-name2text.txt").write_text("".join(texts), encoding="utf-8")
+    (exp / "6-name2semantic.tsv").write_text("".join(sems), encoding="utf-8")
+    return names
+
+
+def reference_copies(*models) -> tuple[list, list]:
+    """CPU copies of the card's `models`: float32, and float64."""
+    return ([copy.deepcopy(m).cpu() for m in models], [copy.deepcopy(m).cpu().double() for m in models])
+
+
+def as_float64(batch: dict) -> dict:
+    return {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / max(float(b.norm()), 1e-300))
+
+
+def grads_of(model) -> dict:
+    return {n: p.grad.detach().double().cpu() for n, p in model.named_parameters() if p.grad is not None}
+
+
+def check_grads(card: dict, cpu: dict, exact: dict, what: str) -> dict:
+    """Each parameter's gradient on the card against the CPU's (both float32)
+    within GRAD_BAR; where it misses, the card's error against the float64
+    gradient `exact` within CPU_ERR_FACTOR x the CPU's, capped at ERR_CAP.
+    Gradients that are zero to rounding (ZERO_TO_ROUNDING) are left out."""
+    assert card.keys() == cpu.keys() == exact.keys(), (what, card.keys() ^ cpu.keys(), cpu.keys() ^ exact.keys())
+    zero = sorted(k for k in exact if float(exact[k].norm()) < ZERO_TO_ROUNDING * float(cpu[k].norm()))
+    within, held = {}, {}
+    for k in card:
+        if k in zero:
+            continue
+        e = rel_l2(card[k], cpu[k])
+        if e < GRAD_BAR:
+            within[k] = e
+            continue
+        e_card, e_cpu = rel_l2(card[k], exact[k]), rel_l2(cpu[k], exact[k])
+        assert e_card <= min(CPU_ERR_FACTOR * e_cpu, ERR_CAP), (what, k, e, e_card, e_cpu)
+        held[k] = {"card_vs_cpu": e, "card_vs_f64": e_card, "cpu_vs_f64": e_cpu}
+    return {"params": len(card), "zero_to_rounding": zero, "within_bar": len(within),
+            "max_within_bar": max(within.values(), default=None), "held_by_f64": held}
+
+
+def launches_zero(what: str) -> dict:
+    counts = all_launch_counts()
+    assert not any(counts.values()), (what, counts)
+    return counts
+
+
+def train_s2_phase(exp_dir: str, ckpt_dir: str, seed: int) -> dict:
+    """run_train_s2(version="v2ProPlus") at full width: one epoch of 4 steps at
+    batch 4, its checkpoint and exports; the .pth reloaded through the port's
+    reader; one step's time and profile; one G+D step at B=1 from the trained
+    weights on the card, on the CPU and on the CPU in float64, with the same
+    batch, noise and segment starts (check_grads)."""
+    from gpt_sovits_tpu_torch.models.discriminators import periods_for
+    from gpt_sovits_tpu_torch.run import run_train_s2
+    from gpt_sovits_tpu_torch.train import ckpt as ckpt_io
+    from gpt_sovits_tpu_torch.train import s2_train
+    from gpt_sovits_tpu_torch.train.data import BucketSampler, S2Dataset, batch_to
+    from gpt_sovits_tpu_torch.utils.config import MelConfig, TrainConfig
+
+    cfg = s2_config_for_version("v2ProPlus")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = run_train_s2(exp_dir, ckpt_dir, version="v2ProPlus", batch_size=TRAIN_B, epochs=1, save_every=1,
+                     model_cfg=cfg, seed=seed, log=lambda *a, **k: None)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    assert r["step"] == 4 and all(np.isfinite(v) for v in r["metrics"].values()), r
+    full = ckpt_io.latest_checkpoint(ckpt_dir)
+    assert full and full.endswith("state_4"), full
+    pth = Path(ckpt_dir) / "s2G-e1.pth"
+    assert pth.read_bytes()[:2] == b"06", pth.read_bytes()[:2]
+    gen, disc = r["models"]["g"], r["models"]["d"]
+    assert all(p.dtype == torch.float32 and p.is_cuda for m in (gen, disc) for p in m.parameters())
+    assert len(disc.discriminators) == 1 + len(periods_for(cfg)) and 23 in disc.periods
+    fresh = SynthesizerTrn(cfg, posterior=True)
+    missing, unexpected = fresh.load_state_dict(ckpt_io.load_torch_checkpoint(str(pth))["weight"], strict=False)
+    assert not unexpected and missing and all(k.startswith("enc_q.") for k in missing), (missing, unexpected)
+    trained = {k: v.float().cpu() for k, v in gen.state_dict().items() if not k.startswith("enc_q.")}
+    reload_err = max(rel_err(fresh.state_dict()[k], v) for k, v in trained.items())
+    assert reload_err < 1e-3, reload_err  # fp16 rounding of the export
+    g_card, d_card = copy.deepcopy(gen), copy.deepcopy(disc)  # the trained weights, before the timed steps
+    (g_cpu, d_cpu), (g_f64, d_f64) = reference_copies(gen, disc)
+
+    mel = MelConfig()
+    ds = S2Dataset(exp_dir, version="v2ProPlus", mel_cfg=mel)
+    sampler = BucketSampler(ds.lengths(), TRAIN_B, seed=seed)
+    big = max(sampler.epoch_batches(0), key=lambda idx: max(ds.lengths()[i] for i in idx))
+    batch = batch_to(ds.collate(big), "cuda")
+    tc = TrainConfig(batch_size=TRAIN_B)
+    step = s2_train.make_train_step(gen, disc, s2_train.make_optimizer_g(gen, tc, 4),
+                                    s2_train.make_optimizer_d(disc, tc, 4), tc, mel)
+    rng = torch.Generator().manual_seed(seed)
+    prof = profile_steps(lambda i: step(batch, rng), 3, profiled=1)  # wall of 3 steps, one profiled
+    samples_s = TRAIN_B / (prof["wall_ms_per_step"] / 1e3)
+
+    # card vs CPU: one G+D step at B=1 from the trained weights, the same batch, noise and starts
+    small = min(sampler.epoch_batches(0), key=lambda idx: max(ds.lengths()[i] for i in idx))
+    one = batch_to(ds.collate([small[0]]), "cpu")
+    t = one["spec"].shape[1]
+    noise = torch.randn((1, t, cfg.inter_channels), generator=torch.Generator().manual_seed(seed))
+    starts = torch.tensor([max(int(one["spec_lengths"][0]) - cfg.segment_size, 0) // 2])
+    losses = {}
+    for tag, b, g, d in (("card", batch_to(one, "cuda"), g_card, d_card), ("cpu", one, g_cpu, d_cpu),
+                         ("f64", as_float64(one), g_f64, d_f64)):
+        fn = s2_train.make_train_step(g, d, s2_train.make_optimizer_g(g, tc, 4), s2_train.make_optimizer_d(d, tc, 4),
+                                      tc, mel)
+        losses[tag] = {k: float(v) for k, v in fn(b, noise=noise, ids_slice=starts).items()}
+    for k in ("loss_d", "loss_g"):
+        assert abs(losses["card"][k] - losses["cpu"][k]) <= 1e-4 * abs(losses["cpu"][k]), (k, losses)
+    card_vs_cpu = {"losses": losses,
+                   "g": check_grads(grads_of(g_card), grads_of(g_cpu), grads_of(g_f64), "G"),
+                   "d": check_grads(grads_of(d_card), grads_of(d_cpu), grads_of(d_f64), "D")}
+    return {
+        "run_s": run_s, "steps": r["step"], "metrics": r["metrics"], "checkpoint": Path(full).name,
+        "exports": [Path(p).name for p in r["exports"]], "pth_header": "06", "reload_max_rel_err": reload_err,
+        "reload_missing": len(missing), "periods": list(disc.periods), "B": TRAIN_B,
+        "spec_frames": int(batch["spec"].shape[1]), "step_profile": prof, "samples_per_s": samples_s,
+        "card_vs_cpu": card_vs_cpu,
+        "max_memory_GB": torch.cuda.max_memory_allocated() / 1e9,
+    }
+
+
+def train_s1_phase(exp_dir: str, ckpt_dir: str, seed: int) -> dict:
+    """run_train_s1 at S1Config() (24 x 512) with DPO, grad_accum 4, batch 4:
+    two epochs of 4 micro-steps (two updates, a checkpoint after them), then
+    a resumed run for one more epoch (one more update, checkpointed); one
+    micro-step's time and profile; one micro-step at B=1 from the trained
+    weights on the card, on the CPU and on the CPU in float64 (check_grads);
+    and <= 50 updates on one fixed batch bring the loss below 0.8 x its first."""
+    from gpt_sovits_tpu_torch.run import run_train_s1
+    from gpt_sovits_tpu_torch.train import ckpt as ckpt_io
+    from gpt_sovits_tpu_torch.train import s1_train
+    from gpt_sovits_tpu_torch.train.data import BucketSampler, S1Dataset, batch_to
+    from gpt_sovits_tpu_torch.utils.config import TrainConfig
+
+    quiet = lambda *a, **k: None
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = S1Config()
+    r = run_train_s1(exp_dir, ckpt_dir, batch_size=TRAIN_B, epochs=2, save_every=2, dpo=True, model_cfg=cfg,
+                     seed=seed, log=quiet)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    assert r["step"] == 8 and np.isfinite(r["metrics"]["loss"]), r
+    first = ckpt_io.load_checkpoint(ckpt_io.latest_checkpoint(ckpt_dir))
+    assert first["step"] == 8 and first["optimizers"]["s1"]["updates"] == 2, (first["step"], first["optimizers"]["s1"]["updates"])
+    r2 = run_train_s1(exp_dir, ckpt_dir, batch_size=TRAIN_B, epochs=3, save_every=3, dpo=True, model_cfg=cfg,
+                      seed=seed, log=quiet)
+    assert r2["resumed_from"].endswith("state_8") and r2["step"] == 12, r2
+    resumed = ckpt_io.load_checkpoint(ckpt_io.latest_checkpoint(ckpt_dir))
+    assert resumed["step"] == 12 and resumed["optimizers"]["s1"]["updates"] == 3, resumed["step"]
+    model = r2["models"]["s1"]
+    assert all(p.dtype == torch.float32 and p.is_cuda for p in model.parameters())
+    for name in ("s1-e2.ckpt", "s1-e3.ckpt", "s1-e3.npz"):
+        assert (Path(ckpt_dir) / name).exists(), name
+    m_card = copy.deepcopy(model)  # the trained weights, before the timed steps
+    (m_cpu,), (m_f64,) = reference_copies(model)
+
+    ds = S1Dataset(exp_dir, bert_dim=cfg.bert_dim)
+    sampler = BucketSampler(ds.lengths(), TRAIN_B, seed=seed)
+    big = max(sampler.epoch_batches(0), key=lambda idx: max(ds.lengths()[i] for i in idx))
+    batch = batch_to(ds.collate(big), "cuda")
+    opt = s1_train.make_optimizer(model.parameters(), TrainConfig(grad_accum=4))
+    step = s1_train.make_train_step(model, opt, use_dpo=True)
+    rng = torch.Generator().manual_seed(seed)
+    prof = profile_steps(lambda i: step(batch, rng), 4, profiled=1)
+    tokens = int((batch["semantic_lens"] + 1).sum())  # targets a micro-step, EOS included (x2 forwards with DPO)
+    tokens_s = tokens / (prof["wall_ms_per_step"] / 1e3)
+
+    # card vs CPU: one micro-step at B=1 from the trained weights (DPO on, the same reject draw)
+    small = min(sampler.epoch_batches(0), key=lambda idx: max(ds.lengths()[i] for i in idx))
+    one = batch_to(ds.collate([small[0]]), "cpu")
+    reject = s1_train.draw_reject(one["semantic_lens"], torch.Generator().manual_seed(seed))
+    losses = {}
+    for tag, b, m in (("card", batch_to(one, "cuda"), m_card), ("cpu", one, m_cpu), ("f64", as_float64(one), m_f64)):
+        o = s1_train.make_optimizer(m.parameters(), TrainConfig(grad_accum=4))  # the step computes, not applies
+        losses[tag] = float(s1_train.make_train_step(m, o, use_dpo=True)(b, reject=reject)["loss"])
+    assert abs(losses["card"] - losses["cpu"]) <= 1e-5 * abs(losses["cpu"]), losses
+    grads = check_grads(grads_of(m_card), grads_of(m_cpu), grads_of(m_f64), "S1")
+
+    # one fixed batch: the loss falls below 0.8 x its first value within 50 updates
+    torch.manual_seed(seed + 3)
+    fit = T2SDecoder(cfg).to("cuda")
+    fit_step = s1_train.make_train_step(fit, s1_train.make_optimizer(
+        fit.parameters(), TrainConfig(warmup_steps=1, grad_accum=1)))
+    curve = [float(fit_step(batch)["loss"])]
+    while curve[-1] >= 0.8 * curve[0] and len(curve) <= 50:
+        curve.append(float(fit_step(batch)["loss"]))
+    assert curve[-1] < 0.8 * curve[0], curve
+    return {
+        "run_s": run_s, "steps": r2["step"], "updates": 3, "resumed_from": Path(r2["resumed_from"]).name,
+        "metrics": r2["metrics"], "B": TRAIN_B, "grad_accum": 4, "dpo": True,
+        "tx_ty": [int(batch["phoneme_ids"].shape[1]), int(batch["semantic_ids"].shape[1])],
+        "step_profile": prof, "target_tokens_per_step": tokens, "tokens_per_s": tokens_s,
+        "card_vs_cpu": {"loss": losses, "grads": grads},
+        "fixed_batch": {"updates": len(curve) - 1, "first": curve[0], "last": curve[-1]},
+        "max_memory_GB": torch.cuda.max_memory_allocated() / 1e9,
+    }
+
+
 def kernel_times(seed: int) -> dict:
     """Device ms of K2 (one DiT block's three calls), K4, K5 and K3 at the
     main path's shapes, B = 1 and 4, with body_ms and helper_ms; of K1's
@@ -2204,6 +2479,16 @@ def main(argv=None) -> int:
     emit({"phase": "cfm_long", **long})
     del pipe3
     torch.cuda.empty_cache()
+    # training: the v2 fine-tune recipe, S2 then S1, on a synthetic corpus; no K1-K6 launch
+    with tempfile.TemporaryDirectory(prefix="gsv_smoke_train_") as tmp:
+        exp = Path(tmp) / "exp"
+        write_corpus(exp, seed=args.seed)
+        for name, phase in (("train_s2", train_s2_phase), ("train_s1", train_s1_phase)):
+            reset_all_launch_counts()
+            t0 = time.perf_counter()
+            rec = phase(str(exp), str(Path(tmp) / name), args.seed)
+            emit({"phase": name, "phase_s": time.perf_counter() - t0, **rec, "launches": launches_zero(name)})
+            torch.cuda.empty_cache()
     emit({"phase": "gemm_tiles", **gemm_tile_phase(args.seed)})
     if args.parent is not None:
         emit({"phase": "compare_trees", **compare_trees(args.parent, args.seed)})

@@ -24,3 +24,9 @@ def resolve_device(device=None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or as it is when it is float64 (a reference run of
+    a training step in double precision keeps its precision end to end)."""
+    return x if x.dtype == torch.float64 else x.float()

@@ -100,3 +100,14 @@ def resample(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     g = np.gcd(int(orig_sr), int(target_sr))
     out = _signal.resample_poly(np.asarray(x, dtype=np.float64), target_sr // g, orig_sr // g)
     return out.astype(np.float32)
+
+
+def save_wav(path: str, x: np.ndarray, sr: int) -> None:
+    """Mono 16-bit PCM WAV (the prepared corpus's `5-wav32k` format)."""
+    pcm = np.clip(np.round(np.asarray(x, np.float32).reshape(-1) * 32768.0), -32768, 32767).astype("<i2").tobytes()
+    header = (
+        b"RIFF" + struct.pack("<I", 36 + len(pcm)) + b"WAVEfmt "
+        + struct.pack("<IHHIIHH", 16, 1, 1, sr, sr * 2, 2, 16) + b"data" + struct.pack("<I", len(pcm))
+    )
+    with open(path, "wb") as f:
+        f.write(header + pcm)

@@ -16,14 +16,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gpt_sovits_tpu_torch import at_least_f32
 from gpt_sovits_tpu_torch.utils.config import MelConfig
 
 
 def spectrogram(y: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
     """(B, L) waveform in [-1,1] -> (B, n_fft//2+1, T) linear magnitude."""
     pad = int((cfg.n_fft - cfg.hop_size) / 2)
-    y = F.pad(y.float()[:, None, :], (pad, pad), mode="reflect")[:, 0]
-    window = torch.hann_window(cfg.win_size, periodic=True, dtype=torch.float32, device=y.device)
+    y = F.pad(at_least_f32(y)[:, None, :], (pad, pad), mode="reflect")[:, 0]
+    window = torch.hann_window(cfg.win_size, periodic=True, dtype=y.dtype, device=y.device)
     z = torch.stft(
         y, cfg.n_fft, hop_length=cfg.hop_size, win_length=cfg.win_size, window=window,
         center=False, return_complex=True,
@@ -74,7 +75,8 @@ def mel_filterbank(sampling_rate: int, n_fft: int, num_mels: int, fmin: float = 
 def spec_to_mel(spec: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
     """(B, bins, T) linear magnitude -> (B, num_mels, T) log-mel."""
     fb = torch.from_numpy(mel_filterbank(cfg.sampling_rate, cfg.n_fft, cfg.num_mels, cfg.fmin, cfg.fmax))
-    mel = torch.einsum("mf,bft->bmt", fb.to(spec.device), spec.float())
+    spec = at_least_f32(spec)
+    mel = torch.einsum("mf,bft->bmt", fb.to(spec.device, spec.dtype), spec)
     return torch.log(torch.clamp(mel, min=1e-5))
 
 

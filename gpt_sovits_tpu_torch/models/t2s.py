@@ -27,6 +27,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from gpt_sovits_tpu_torch import at_least_f32
 from gpt_sovits_tpu_torch.utils.config import S1Config
 
 EOS_MASK_WARMUP_STEPS = 11  # ref t2s_model.py:889 — no EOS before 0.4 s
@@ -374,3 +375,42 @@ def generate(
         tok_emb = model.embed_audio(tok[:, None], (prompt_lens + step_i)[:, None])
         step_i += 1
     return GenResult(tokens=tokens, lengths=lengths, steps=step_i)
+
+
+def t2s_loss(model: T2SDecoder, phoneme_ids, phoneme_lens, semantic_ids, semantic_lens, bert_features):
+    """Training loss (port of t2s.py:519 `t2s_loss`): the summed
+    cross-entropy of the semantic targets with EOS appended, and top-1
+    accuracy over the non-EOS targets. Text is LEFT-padded (B, Tx), semantic
+    ids RIGHT-padded (B, Ty) without EOS. The prediction for y_t comes from
+    slot tx-1+t (the last text token predicts y_0, y_{L-1}'s slot predicts
+    EOS); positions >= L are attention padding. Runs the full-sequence
+    forward in float32, never the decode step.
+
+    -> (loss, {"acc", "tokens", "logp" (B, Ty+1), "mask" (B, Ty+1)})."""
+    cfg = model.cfg
+    dev = phoneme_ids.device
+    b, tx = phoneme_ids.shape
+    ty = semantic_ids.shape[1]
+    ar_x = torch.arange(tx, device=dev)
+    x_valid = ar_x[None, :] >= (tx - phoneme_lens[:, None])
+    x_pos = torch.clamp(ar_x[None, :] - (tx - phoneme_lens[:, None]), min=0)
+    ar_y = torch.arange(ty + 1, device=dev)
+    y_valid = ar_y[None, :] < semantic_lens[:, None]
+    loss_valid = ar_y[None, :] < (semantic_lens[:, None] + 1)
+    y_pad = F.pad(semantic_ids, (0, 1))
+    y_in = torch.where(y_valid, y_pad, torch.zeros_like(y_pad))
+    targets = torch.where(y_valid, y_pad, torch.full_like(y_pad, cfg.eos_id))
+    y_pos = ar_y[None, :].expand(b, ty + 1)
+
+    x_emb = model.embed_text(phoneme_ids, at_least_f32(bert_features), x_pos) * x_valid[..., None]
+    y_emb = model.embed_audio(y_in, y_pos) * y_valid[..., None]
+    logits = model(torch.cat([x_emb, y_emb], dim=1), build_prefix_attn_bias(x_valid, y_valid))
+
+    pred = at_least_f32(logits[:, tx - 1 : tx + ty])  # (B, Ty+1, V)
+    logp = torch.log_softmax(pred, dim=-1)
+    tgt_logp = logp.gather(-1, targets[..., None])[..., 0]
+    mask = loss_valid.float()
+    loss = -(tgt_logp * mask).sum()
+    scored = loss_valid & (targets != cfg.eos_id)
+    acc = ((pred.argmax(-1) == targets) & scored).sum() / torch.clamp_min(scored.sum(), 1)
+    return loss, {"acc": acc, "tokens": mask.sum(), "logp": tgt_logp, "mask": mask}

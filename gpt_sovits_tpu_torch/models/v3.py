@@ -112,7 +112,7 @@ class SynthesizerTrnV3(nn.Module):
         quantized = torch.repeat_interleave(self.quantizer.decode(codes), 2, dim=1)  # 25 Hz -> 50 Hz
         y_mask = sequence_mask(codes_lengths * 2, quantized.shape[1])
         text_mask = sequence_mask(text_lengths, text.shape[1])
-        _, _, x = self.enc_p(quantized.transpose(1, 2), y_mask, text, text_mask, ge.transpose(1, 2), speed=speed)
+        _, _, _, x = self.enc_p(quantized.transpose(1, 2), y_mask, text, text_mask, ge.transpose(1, 2), speed=speed)
         fea = interpolate_nearest(self.bridge(x).transpose(1, 2), self.interp_factor)
         f = np.float32(3.875 if c.version == "v3" else 4)
         mel_len = codes_lengths.float() * float(f)

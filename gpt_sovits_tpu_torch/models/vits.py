@@ -1,12 +1,16 @@
-"""S2 "SoVITS" synthesizer for inference, v1/v2/v2Pro/v2ProPlus (port of
-gpt_sovits_tpu/models/vits.py).
+"""S2 "SoVITS" synthesizer, v1/v2/v2Pro/v2ProPlus (port of
+gpt_sovits_tpu/models/vits.py): inference, and the training forward.
 
 Public methods keep the JAX package's feature-last layout: SSL features
 (B, T, 768), reference spectrogram (B, T, bins), latents (B, T, C), ge
 (B, 1, gin), waveform (B, T_wav, 1). Inside, modules run channels-first.
 Parameter names are the reference's (module/models.py); weight-norm pairs
-(`weight_g`/`weight_v`) are folded in `SynthesizerTrn.load_state_dict`, and
-the posterior encoder `enc_q.*`, which only training uses, is dropped there.
+(`weight_g`/`weight_v`) are folded in `SynthesizerTrn.load_state_dict`.
+The posterior encoder `enc_q.*` exists only in a model built for training
+(`posterior=True`); an inference model drops it at load. Convolution
+weights are plain tensors, in training too, as in the JAX model: weight
+norm exists only in the exported reference-format files
+(train/ckpt.py).
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from gpt_sovits_tpu_torch import at_least_f32
 from gpt_sovits_tpu_torch.models.vits_modules import (
     MRTE,
     Conv1d,
@@ -25,6 +30,7 @@ from gpt_sovits_tpu_torch.models.vits_modules import (
     ResBlock1,
     ResidualCouplingBlock,
     VQCodebook,
+    WN,
     sequence_mask,
 )
 from gpt_sovits_tpu_torch.utils.config import S2Config
@@ -54,10 +60,17 @@ def _nearest_resize_index(t_in: int, t_out: int) -> np.ndarray:
     return np.floor(off.astype(np.float32)).astype(np.int64)
 
 
+def slice_segments(x, starts, length: int):
+    """x (B, T, C) -> (B, length, C) from each row's start, clamped to fit
+    as jax.lax.dynamic_slice clamps (ref commons.slice_segments)."""
+    starts = torch.clamp(starts, 0, x.shape[1] - length)
+    idx = starts[:, None] + torch.arange(length, device=x.device)[None, :]
+    return x.gather(1, idx[..., None].expand(-1, -1, x.shape[2]))
+
+
 class TextEncoder(nn.Module):
     """models.py:154: SSL branch + text branch fused by MRTE -> the prior
-    mean m_p (the log-scale half of `proj` serves only noise, which
-    inference does not draw)."""
+    (m_p, logs_p)."""
 
     def __init__(self, c: S2Config):
         super().__init__()
@@ -73,8 +86,8 @@ class TextEncoder(nn.Module):
 
     def forward(self, quantized, y_mask, text, text_mask, ge, speed: float = 1.0):
         """quantized (B,768,T), y_mask (B,1,T), text (B,Tt), ge (B,C,1) ->
-        (m_p (B,inter,T'), y_mask (B,1,T'), hidden (B,hidden,T'): the
-        encoder2 output the v3/v4 bridge reads)."""
+        (m_p, logs_p (B,inter,T'), y_mask (B,1,T'), hidden (B,hidden,T'):
+        the encoder2 output the v3/v4 bridge reads)."""
         y = self.ssl_proj(quantized * y_mask) * y_mask
         y = self.encoder_ssl(y, y_mask)
         t = self.text_embedding(text).transpose(1, 2)
@@ -89,7 +102,27 @@ class TextEncoder(nn.Module):
             idx = torch.from_numpy(_nearest_resize_index(t_in, new_t)).to(y.device)
             y_mask = (y_mask[:, :, idx] > 0).to(y.dtype)
         stats = self.proj(y) * y_mask
-        return stats[:, : self.inter], y_mask, y
+        return stats[:, : self.inter], stats[:, self.inter :], y_mask, y
+
+
+class PosteriorEncoder(nn.Module):
+    """models.py:298: linear spectrogram -> WN(16 layers) -> (z, m_q, logs_q),
+    z = (m_q + noise * exp(logs_q)) * mask. Training only."""
+
+    def __init__(self, c: S2Config):
+        super().__init__()
+        self.inter = c.inter_channels
+        self.pre = Conv1d(c.spec_channels, c.hidden_channels, 1)
+        self.enc = WN(c.hidden_channels, 5, 1, 16, gin_channels=c.gin_channels)
+        self.proj = Conv1d(c.hidden_channels, 2 * c.inter_channels, 1)
+
+    def forward(self, x, x_mask, g, noise):
+        """x (B,bins,T), x_mask (B,1,T), g (B,gin,1), noise (B,inter,T)."""
+        h = self.pre(x) * x_mask
+        h = self.enc(h, x_mask, g=g)
+        stats = self.proj(h) * x_mask
+        m, logs = stats[:, : self.inter], stats[:, self.inter :]
+        return (m + noise * torch.exp(logs)) * x_mask, m, logs
 
 
 class Generator(nn.Module):
@@ -152,13 +185,17 @@ def fold_weight_norm(state_dict: dict) -> dict:
 
 
 class SynthesizerTrn(nn.Module):
-    """The S2 model's inference half (models.py:796)."""
+    """The S2 model (models.py:796); `posterior=True` adds the posterior
+    encoder `enc_q` that the training forward needs."""
 
-    def __init__(self, cfg: S2Config):
+    def __init__(self, cfg: S2Config, *, posterior: bool = False):
         super().__init__()
         c = self.cfg = cfg
+        self.posterior = posterior
         self.enc_p = TextEncoder(c)
         self.dec = Generator(c)
+        if posterior:
+            self.enc_q = PosteriorEncoder(c)
         self.flow = ResidualCouplingBlock(c.inter_channels, c.hidden_channels, 5, 1, 4, gin_channels=c.gin_channels)
         self.ref_dim = c.spec_channels if c.version == "v1" else min(704, c.spec_channels)
         self.ref_enc = MelStyleEncoder(self.ref_dim, out_dim=c.gin_channels)
@@ -168,11 +205,17 @@ class SynthesizerTrn(nn.Module):
             self.sv_emb = nn.Linear(c.sv_dim, c.gin_channels)
             self.ge_to512 = nn.Linear(c.gin_channels, c.mrte_hidden)
             self.prelu = nn.PReLU(num_parameters=c.gin_channels)
+        if posterior:  # a training model's initial values (modules.py:430-431, models.py init_weights)
+            for i in range(0, len(self.flow.flows), 2):  # mean-only couplings start as the identity
+                nn.init.zeros_(self.flow.flows[i].post.weight)
+                nn.init.zeros_(self.flow.flows[i].post.bias)
+            for up in self.dec.ups:
+                nn.init.normal_(up.weight, 0.0, 0.01)
 
     def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
         """Reference-named S2 weights: weight norm folded here; `enc_q.*`
-        (the posterior encoder, used only in training) dropped."""
-        sd = fold_weight_norm({k: v for k, v in state_dict.items() if not k.startswith("enc_q.")})
+        (the posterior encoder) dropped unless the model was built with it."""
+        sd = fold_weight_norm({k: v for k, v in state_dict.items() if self.posterior or not k.startswith("enc_q.")})
         return super().load_state_dict(sd, strict=strict, assign=assign)
 
     # -- timbre ---------------------------------------------------------------
@@ -219,6 +262,54 @@ class SynthesizerTrn(nn.Module):
         quantized = self.decode_codes(codes).transpose(1, 2)
         y_mask = sequence_mask(codes_lengths * 2, quantized.shape[2])
         text_mask = sequence_mask(text_lengths, text.shape[1])
-        m_p, y_mask, _ = self.enc_p(quantized, y_mask, text, text_mask, ge_for_enc.transpose(1, 2), speed=speed)
+        m_p, _, y_mask, _ = self.enc_p(quantized, y_mask, text, text_mask, ge_for_enc.transpose(1, 2), speed=speed)
         z = self.flow.reverse(m_p, y_mask, g=ge.transpose(1, 2))
         return (z * y_mask).transpose(1, 2), ge
+
+    # -- training -------------------------------------------------------------
+
+    def forward(self, ssl, spec, spec_lengths, text, text_lengths, *, sv_emb=None, noise=None, ids_slice=None,
+                generator: torch.Generator | None = None) -> dict:
+        """models.py:901 forward (JAX `SynthesizerTrn.__call__`): ssl (B,Ts,768)
+        at 50 Hz, spec (B,T,bins), text (B,Tt). The posterior noise (B,T,inter)
+        and the segment starts (B,) are `noise`/`ids_slice` when given, else
+        drawn from `generator` on the CPU. -> the pieces the GAN step needs,
+        feature-last: wav_hat (B, segment*hop, 1), commit_loss, ids_slice,
+        y_mask (B,T,1), z, z_p, m_p, logs_p, m_q, logs_q (B,T,inter)."""
+        c = self.cfg
+        b, t = spec.shape[:2]
+        y_mask = sequence_mask(spec_lengths, t)  # (B,1,T)
+        ge = self.compute_ge(spec, y_mask[:, 0], sv_emb)
+        ge_for_enc = self.ge_to512(ge) if c.is_pro else ge
+
+        x = self.ssl_proj(ssl.transpose(1, 2)).transpose(1, 2)
+        quantized = self.quantizer.decode(self.quantizer.encode(x))
+        # straight-through; the commit loss trains the encoder, not the
+        # codebook (core_vq.py VectorQuantization: mse(quantize.detach(), x))
+        commit_loss = torch.mean((quantized.detach() - x) ** 2)
+        quantized = x + (quantized - x).detach()
+        if c.freeze_quantizer:
+            quantized = quantized.detach()
+        if c.semantic_frame_rate == "25hz":
+            quantized = torch.repeat_interleave(quantized, 2, dim=1)
+        quantized = F.pad(quantized, (0, 0, 0, max(t - quantized.shape[1], 0)))[:, :t]
+
+        text_mask = sequence_mask(text_lengths, text.shape[1])
+        m_p, logs_p, y_mask, _ = self.enc_p(quantized.transpose(1, 2), y_mask, text, text_mask,
+                                            ge_for_enc.transpose(1, 2))
+        if noise is None:
+            noise = torch.randn((b, t, c.inter_channels), generator=generator)
+        noise = torch.as_tensor(noise).to(spec.device, at_least_f32(spec).dtype).transpose(1, 2)
+        z, m_q, logs_q = self.enc_q(spec.transpose(1, 2), y_mask, ge.detach().transpose(1, 2), noise)
+        z_p = self.flow(z, y_mask, g=ge.transpose(1, 2))
+
+        seg = c.segment_size
+        if ids_slice is None:  # commons.rand_slice_segments
+            max_starts = torch.clamp_min(spec_lengths.cpu() - seg, 0)
+            ids_slice = (torch.rand(b, generator=generator) * (max_starts + 1)).long()
+        starts = torch.clamp(torch.as_tensor(ids_slice).to(spec.device).long(), 0, max(t - seg, 0))
+        fl = lambda a: a.transpose(1, 2)
+        wav_hat = self.dec(slice_segments(fl(z), starts, seg), g=ge)
+        return {"wav_hat": wav_hat, "commit_loss": commit_loss, "ids_slice": starts, "y_mask": fl(y_mask),
+                "z": fl(z), "z_p": fl(z_p), "m_p": fl(m_p), "logs_p": fl(logs_p), "m_q": fl(m_q),
+                "logs_q": fl(logs_q)}

@@ -1,5 +1,4 @@
-"""VITS building blocks for inference (port of
-gpt_sovits_tpu/models/vits_modules.py).
+"""VITS building blocks (port of gpt_sovits_tpu/models/vits_modules.py).
 
 Internally channels-first (B, C, T), PyTorch's convolution layout; module
 and parameter names follow the reference's state dict (modules.py,
@@ -96,7 +95,8 @@ class ResBlock1(nn.Module):
 
 
 class ResidualCouplingLayer(nn.Module):
-    """Mean-only coupling layer (ref modules.py:399), reverse direction."""
+    """Mean-only coupling layer (ref modules.py:399): x1 + m(x0) forward,
+    x1 - m(x0) in reverse (logs == 0, so no log-determinant)."""
 
     def __init__(self, channels, hidden, kernel_size, dilation_rate, n_layers, gin_channels=0):
         super().__init__()
@@ -105,12 +105,18 @@ class ResidualCouplingLayer(nn.Module):
         self.enc = WN(hidden, kernel_size, dilation_rate, n_layers, gin_channels=gin_channels)
         self.post = Conv1d(hidden, self.half, 1)
 
-    def reverse(self, x, x_mask, g=None):
-        x0, x1 = x[:, : self.half], x[:, self.half :]
+    def _mean(self, x0, x_mask, g):
         h = self.pre(x0) * x_mask
         h = self.enc(h, x_mask, g=g)
-        m = self.post(h) * x_mask
-        return torch.cat([x0, (x1 - m) * x_mask], dim=1)
+        return self.post(h) * x_mask
+
+    def forward(self, x, x_mask, g=None):
+        x0, x1 = x[:, : self.half], x[:, self.half :]
+        return torch.cat([x0, (self._mean(x0, x_mask, g) + x1) * x_mask], dim=1)
+
+    def reverse(self, x, x_mask, g=None):
+        x0, x1 = x[:, : self.half], x[:, self.half :]
+        return torch.cat([x0, (x1 - self._mean(x0, x_mask, g)) * x_mask], dim=1)
 
 
 class Flip(nn.Module):
@@ -131,6 +137,12 @@ class ResidualCouplingBlock(nn.Module):
             mods.append(ResidualCouplingLayer(channels, hidden, kernel_size, dilation_rate, n_layers, gin_channels))
             mods.append(Flip())
         self.flows = nn.ModuleList(mods)
+
+    def forward(self, x, x_mask, g=None):
+        for i in range(0, len(self.flows), 2):
+            x = self.flows[i](x, x_mask, g=g)
+            x = self.flows[i + 1](x)
+        return x
 
     def reverse(self, x, x_mask, g=None):
         for i in reversed(range(0, len(self.flows), 2)):

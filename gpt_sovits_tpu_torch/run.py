@@ -1,0 +1,208 @@
+"""Library entry points for training (port of gpt_sovits_tpu/run.py
+`run_train_s1` / `run_train_s2`): the v2 fine-tune recipe, S2 first, then
+S1, from a prepared experiment directory (train/data.py) to full
+checkpoints and reference-format weights in `ckpt_dir`.
+
+Both run on the CUDA device unless `device` says otherwise (`device="cpu"`),
+in float32 with TF32 off (`resolve_device`). A run resumes from the newest
+full checkpoint in `ckpt_dir` at the epoch after it; without one it starts
+from `pretrained_*` reference checkpoints when given, else from weights
+made from `seed`. Each epoch's randomness (DPO rejects, posterior noise,
+segment starts) comes from a CPU generator seeded from (seed, epoch), so a
+resumed run equals an uninterrupted one and a card run draws what a CPU run
+draws. Every `save_every` epochs: a full checkpoint `state_{step}`, and
+fp16 exports `s1-e{n}.ckpt`/`.npz` or `s2G-e{n}.pth`/`.npz`.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+DP_SLICE = "data-parallel training (DDP over NCCL) is slice 6b of the port; train on one device"
+
+
+def epoch_generator(seed: int, epoch: int) -> torch.Generator:
+    """The CPU generator of one epoch's draws."""
+    return torch.Generator().manual_seed(int(np.random.SeedSequence([seed, epoch]).generate_state(1)[0]))
+
+
+def _check_f32(*models) -> None:
+    """Training runs in float32: the pipeline's bf16/int8 serving weights must
+    not reach a trainer."""
+    for m in models:
+        bad = sorted({str(p.dtype) for p in m.parameters() if p.dtype != torch.float32})
+        if bad:
+            raise TypeError(f"{type(m).__name__} holds {bad} parameters; training runs in float32")
+
+
+def _resume(ckpt_dir: str, device, log) -> Optional[dict]:
+    from gpt_sovits_tpu_torch.train import ckpt as ckpt_io
+
+    latest = ckpt_io.latest_checkpoint(ckpt_dir)
+    if latest is None:
+        return None
+    log("resumed from", latest)
+    return dict(ckpt_io.load_checkpoint(latest, map_location=device), path=latest)
+
+
+def run_train_s1(exp_dir: str, ckpt_dir: str, *, batch_size: int = 8, epochs: int = 15, save_every: int = 5,
+                 dpo: bool = False, pretrained_s1: Optional[str] = None, model_cfg=None,
+                 seed: int = 1234, data_parallel: bool = False, device=None,
+                 log: Callable[..., None] = print) -> dict:
+    """S1 AR text -> semantic training (reference s1_train.py): AdamW behind
+    MultiSteps(grad_accum), DPO when `dpo`. -> {"step", "epoch",
+    "resumed_from", "exports", "metrics", "models"}: micro-steps and epochs
+    done, the checkpoint resumed, the files written, the last micro-step's
+    metrics, and the trained model ({"s1": T2SDecoder})."""
+    from gpt_sovits_tpu_torch import resolve_device
+    from gpt_sovits_tpu_torch.models.t2s import T2SDecoder
+    from gpt_sovits_tpu_torch.train import ckpt as ckpt_io
+    from gpt_sovits_tpu_torch.train.data import BucketSampler, S1Dataset, batch_to, data_iterator
+    from gpt_sovits_tpu_torch.train.s1_train import make_optimizer, make_train_step
+    from gpt_sovits_tpu_torch.utils.config import S1Config, TrainConfig
+    from gpt_sovits_tpu_torch.utils.metrics import MetricsLogger
+
+    if data_parallel:
+        raise NotImplementedError(DP_SLICE)
+    dev = resolve_device(device)
+    cfg = model_cfg or S1Config()
+    tc = TrainConfig(batch_size=batch_size, epochs=epochs, grad_accum=4, seed=seed)
+    ds = S1Dataset(exp_dir, bert_dim=cfg.bert_dim)
+    sampler = BucketSampler(ds.lengths(), tc.batch_size, seed=tc.seed)
+    if not sampler.epoch_batches(0):
+        raise RuntimeError("no training batches (dataset too small for batch size)")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(tc.seed)
+        model = T2SDecoder(cfg)
+    model.to(dev)
+    _check_f32(model)
+    opt = make_optimizer(model.parameters(), tc)
+    step, start_epoch, exports = 0, 0, []
+    state = _resume(ckpt_dir, dev, log)
+    if state is not None:
+        model.load_state_dict(state["models"]["s1"])
+        opt.load_state_dict(state["optimizers"]["s1"])
+        step, start_epoch = state["step"], state["epoch"]
+    elif pretrained_s1:
+        ck = ckpt_io.load_torch_checkpoint(pretrained_s1)
+        model.load_state_dict({k.removeprefix("model."): v for k, v in ck.get("weight", ck).items()})
+        log("loaded pretrained", pretrained_s1)
+    train_step = make_train_step(model, opt, use_dpo=dpo)
+    mlog = MetricsLogger(os.path.join(ckpt_dir, "logs"), echo=False)
+    metrics = {}
+    try:
+        for epoch in range(start_epoch, tc.epochs):
+            gen = epoch_generator(tc.seed, epoch)
+            for batch in data_iterator(ds, sampler, epoch):
+                metrics = train_step(batch_to(batch, dev), gen)
+                step += 1
+            metrics = {k: float(v) for k, v in metrics.items()}
+            log(f"epoch {epoch}: loss={metrics['loss']:.3f} acc={metrics['acc']:.3f}")
+            mlog.log(step, **metrics)
+            if (epoch + 1) % save_every == 0:
+                ckpt_io.save_checkpoint({"step": step, "epoch": epoch + 1, "models": {"s1": model.state_dict()},
+                                         "optimizers": {"s1": opt.state_dict()}}, ckpt_dir, step)
+                sd = model.state_dict()
+                info = f"{epoch + 1}epoch"
+                exports.append(ckpt_io.export_weights(sd, os.path.join(ckpt_dir, f"s1-e{epoch + 1}.npz"),
+                                                      config={"model": "s1"}, info=info))
+                # the reference's weights-only fp16 export (s1_train.py my_model_ckpt)
+                exports.append(ckpt_io.save_reference_pth(sd, os.path.join(ckpt_dir, f"s1-e{epoch + 1}.ckpt"),
+                                                          config={"model": {"t2s": "gpt_sovits_tpu_torch"}},
+                                                          info=info))
+    finally:
+        mlog.close()
+    log("train-s1 done")
+    return {"step": step, "epoch": tc.epochs, "resumed_from": state and state["path"], "exports": exports,
+            "metrics": metrics, "models": {"s1": model}}
+
+
+def run_train_s2(exp_dir: str, ckpt_dir: str, *, version: str = "v2", batch_size: int = 8, epochs: int = 8,
+                 save_every: int = 4, pretrained_s2g: Optional[str] = None, pretrained_s2d: Optional[str] = None,
+                 model_cfg=None, seed: int = 1234, data_parallel: bool = False, device=None,
+                 log: Callable[..., None] = print) -> dict:
+    """S2 SoVITS GAN training (reference s2_train.py) for v1/v2/v2Pro/
+    v2ProPlus; the MPD takes periods 17 and 23 too for the Pro versions.
+    -> {"step", "epoch", "resumed_from", "exports", "metrics", "models"} as
+    run_train_s1, the models {"g": SynthesizerTrn, "d": the discriminator}."""
+    from gpt_sovits_tpu_torch import resolve_device
+    from gpt_sovits_tpu_torch.models.discriminators import MultiPeriodDiscriminator, periods_for
+    from gpt_sovits_tpu_torch.models.vits import SynthesizerTrn
+    from gpt_sovits_tpu_torch.train import ckpt as ckpt_io
+    from gpt_sovits_tpu_torch.train.data import BucketSampler, S2Dataset, batch_to, data_iterator
+    from gpt_sovits_tpu_torch.train.s2_train import make_optimizer_d, make_optimizer_g, make_train_step
+    from gpt_sovits_tpu_torch.utils.config import MelConfig, TrainConfig, s2_config_for_version
+    from gpt_sovits_tpu_torch.utils.metrics import MetricsLogger
+
+    if data_parallel:
+        raise NotImplementedError(DP_SLICE)
+    dev = resolve_device(device)
+    s2 = model_cfg or s2_config_for_version(version)
+    tc = TrainConfig(batch_size=batch_size, epochs=epochs, seed=seed)
+    mel = MelConfig()
+    ds = S2Dataset(exp_dir, version=version, mel_cfg=mel)
+    sampler = BucketSampler(ds.lengths(), tc.batch_size, seed=tc.seed)
+    n_batches = len(sampler.epoch_batches(0))
+    if not n_batches:
+        raise RuntimeError("no training batches (dataset too small for batch size)")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(tc.seed)
+        gen = SynthesizerTrn(s2, posterior=True)
+        disc = MultiPeriodDiscriminator(periods_for(s2))
+    gen.to(dev)
+    disc.to(dev)
+    _check_f32(gen, disc)
+    opt_g = make_optimizer_g(gen, tc, n_batches)
+    opt_d = make_optimizer_d(disc, tc, n_batches)
+    step, start_epoch, exports = 0, 0, []
+    state = _resume(ckpt_dir, dev, log)
+    if state is not None:  # s2_train.py:206-231
+        gen.load_state_dict(state["models"]["g"])
+        disc.load_state_dict(state["models"]["d"])
+        opt_g.load_state_dict(state["optimizers"]["g"])
+        opt_d.load_state_dict(state["optimizers"]["d"])
+        step, start_epoch = state["step"], state["epoch"]
+    else:  # resume-else-pretrained, s2_train.py:232-275
+        if pretrained_s2g:
+            ck = ckpt_io.load_torch_checkpoint(pretrained_s2g)
+            missing, unexpected = gen.load_state_dict(ck.get("weight", ck), strict=False)
+            if unexpected or any(not k.startswith("enc_q.") for k in missing):
+                raise ValueError(f"{pretrained_s2g}: missing {missing}, unexpected {unexpected}")
+            log("loaded pretrained", pretrained_s2g)
+        if pretrained_s2d:
+            ck = ckpt_io.load_torch_checkpoint(pretrained_s2d)
+            disc.load_state_dict(ck.get("weight", ck))
+            log("loaded pretrained", pretrained_s2d)
+    train_step = make_train_step(gen, disc, opt_g, opt_d, tc, mel)
+    mlog = MetricsLogger(os.path.join(ckpt_dir, "logs"), echo=False)
+    metrics = {}
+    try:
+        for epoch in range(start_epoch, tc.epochs):
+            rng = epoch_generator(tc.seed, epoch)
+            for batch in data_iterator(ds, sampler, epoch):
+                metrics = train_step(batch_to(batch, dev), rng)
+                step += 1
+            metrics = {k: float(v) for k, v in metrics.items()}
+            log(f"epoch {epoch}: " + " ".join(f"{k}={v:.3f}" for k, v in metrics.items()))
+            mlog.log(step, **metrics)
+            if (epoch + 1) % save_every == 0:
+                ckpt_io.save_checkpoint({"step": step, "epoch": epoch + 1,
+                                         "models": {"g": gen.state_dict(), "d": disc.state_dict()},
+                                         "optimizers": {"g": opt_g.state_dict(), "d": opt_d.state_dict()}},
+                                        ckpt_dir, step)
+                ref = ckpt_io.s2_reference_state(gen.state_dict())
+                info = f"{epoch + 1}epoch"
+                exports.append(ckpt_io.export_weights(ref, os.path.join(ckpt_dir, f"s2G-e{epoch + 1}.npz"),
+                                                      config={"version": version}, info=info))
+                exports.append(ckpt_io.save_reference_pth(ref, os.path.join(ckpt_dir, f"s2G-e{epoch + 1}.pth"),
+                                                          model_version=version, config={"version": version},
+                                                          info=info))
+    finally:
+        mlog.close()
+    log("train-s2 done")
+    return {"step": step, "epoch": tc.epochs, "resumed_from": state and state["path"], "exports": exports,
+            "metrics": metrics, "models": {"g": gen, "d": disc}}

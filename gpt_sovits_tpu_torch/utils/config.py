@@ -1,7 +1,7 @@
-"""Typed configuration (a copy of the inference part of
-gpt_sovits_tpu/utils/config.py: MelConfig, MEL_V3, MEL_V4, S1Config,
-S2Config, InferenceConfig, s2_config_for_version) and the v4 vocoder's
-constants of gpt_sovits_tpu/utils/loaders.py `load_vocoder`."""
+"""Typed configuration (a copy of gpt_sovits_tpu/utils/config.py's
+MelConfig, MEL_V3, MEL_V4, S1Config, S2Config, TrainConfig,
+InferenceConfig, s2_config_for_version) and the v4 vocoder's constants of
+gpt_sovits_tpu/utils/loaders.py `load_vocoder`."""
 
 from __future__ import annotations
 
@@ -101,6 +101,29 @@ class S2Config:
     @property
     def is_cfm(self) -> bool:
         return self.version in ("v3", "v4")
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Shared optimization knobs (reference: configs/s2.json "train" and
+    s1longer-v2.yaml "train"/"optimizer")."""
+
+    seed: int = 1234
+    epochs: int = 100
+    batch_size: int = 32
+    learning_rate: float = 1e-4
+    betas: tuple[float, float] = (0.8, 0.99)
+    eps: float = 1e-9
+    lr_decay: float = 0.999875
+    segment_size: int = 20480
+    c_mel: float = 45.0
+    c_kl: float = 1.0
+    text_low_lr_rate: float = 0.4
+    grad_accum: int = 1
+    warmup_steps: int = 2000
+    max_sec: int = 54
+    grad_clip: float = 1.0
+    save_every_n_epoch: int = 1
 
 
 @dataclass(frozen=True)

@@ -157,7 +157,9 @@ def _generator(dec, pre, cfg, out, *, weight_norm: bool):
 
 
 def s2_from_jax(params: dict, cfg) -> dict:
-    """SynthesizerTrn (v1/v2/v2Pro/v2ProPlus) under the reference names."""
+    """SynthesizerTrn (v1/v2/v2Pro/v2ProPlus) under the reference names, the
+    posterior encoder `enc_q` included when the tree has it (a model built
+    with `posterior=True` loads it)."""
     p = params["params"]
     out: dict = {}
     _enc_p(p["enc_p"], cfg.n_layers, out)
@@ -180,6 +182,42 @@ def s2_from_jax(params: dict, cfg) -> dict:
         _dense(p["sv_emb"], "sv_emb", out)
         _dense(p["ge_to512"], "ge_to512", out)
         out["prelu.weight"] = _t(p["prelu_alpha"])
+    return out
+
+
+def _conv2d(node, prefix, out):
+    out[f"{prefix}.weight"] = _t(np.asarray(node["kernel"]).transpose(3, 2, 0, 1))  # (kh,kw,in,out)->(out,in,kh,kw)
+    if "bias" in node:
+        out[f"{prefix}.bias"] = _t(node["bias"])
+
+
+def d_from_jax(params: dict, periods=(2, 3, 5, 7, 11)) -> dict:
+    """models/discriminators.py MultiPeriodDiscriminator under the reference
+    names (the inverse of checkpoint_compat.py `d_params_from_torch`),
+    weights plain."""
+    p = params["params"]
+    out: dict = {}
+    for i in range(6):
+        _conv(p["disc_s"][f"conv_{i}"], f"discriminators.0.convs.{i}", out)
+    _conv(p["disc_s"]["conv_post"], "discriminators.0.conv_post", out)
+    for di, period in enumerate(periods, start=1):
+        node = p[f"disc_p{period}"]
+        for i in range(5):
+            _conv2d(node[f"conv_{i}"], f"discriminators.{di}.convs.{i}", out)
+        _conv2d(node["conv_post"], f"discriminators.{di}.conv_post", out)
+    return out
+
+
+def mrd_from_jax(params: dict, resolutions) -> dict:
+    """models/discriminators.py MultiResolutionDiscriminator under the
+    vendored BigVGAN names (`discriminators.{i}.convs.{j}`, `.conv_post`)."""
+    p = params["params"]
+    out: dict = {}
+    for di, res in enumerate(resolutions):
+        node = p[f"disc_r{res[0]}"]
+        for i in range(5):
+            _conv2d(node[f"conv_{i}"], f"discriminators.{di}.convs.{i}", out)
+        _conv2d(node["conv_post"], f"discriminators.{di}.conv_post", out)
     return out
 
 
@@ -337,12 +375,6 @@ def hubert_from_jax(params: dict, cfg) -> dict:
 # ---------------------------------------------------------------------------
 # ERes2NetV2 (reference eres2net names, BatchNorm running stats)
 # ---------------------------------------------------------------------------
-
-
-def _conv2d(node, prefix, out):
-    out[f"{prefix}.weight"] = _t(np.asarray(node["kernel"]).transpose(3, 2, 0, 1))  # (kh,kw,in,out)->(out,in,kh,kw)
-    if "bias" in node:
-        out[f"{prefix}.bias"] = _t(node["bias"])
 
 
 def _bn(node, prefix, out):

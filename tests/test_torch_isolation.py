@@ -1,6 +1,6 @@
 """The PyTorch port, chip_smoke.py and broken_copies.py stand alone: they
-import with jax, flax and transformers blocked, and no file of theirs
-imports jax, flax, transformers or the JAX package."""
+import with jax, flax, optax, orbax and transformers blocked, and no file of
+theirs imports any of them or the JAX package."""
 
 import ast
 import os
@@ -11,7 +11,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "gpt_sovits_tpu_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "broken_copies.py"]
-BANNED = ("jax", "jaxlib", "flax", "transformers", "gpt_sovits_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "chex", "transformers", "gpt_sovits_tpu")
 
 _BLOCKER = """
 import importlib.abc, sys
@@ -43,7 +43,8 @@ def test_imports_with_jax_blocked():
                 "ops.snake_aa", "infer.continuous", "serve.continuous_service", "serve.api", "serve.gui_client",
                 "models.bert", "text.bert_tokenizer", "text.zh_norm", "text.tone_sandhi", "text.chinese",
                 "text.lang_segmenter", "text.japanese", "text.korean", "text.cantonese", "text.g2pw",
-                "utils.onnx_lite"):
+                "utils.onnx_lite", "run", "train.optim", "train.scaled_adam", "train.s1_train", "train.s2_train",
+                "train.data", "train.ckpt", "models.discriminators"):
         assert f"gpt_sovits_tpu_torch.{mod}" in res.stdout, mod
 
 

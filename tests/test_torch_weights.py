@@ -79,6 +79,63 @@ def test_s2_from_jax_equals_reference_exporter(version):
     np.testing.assert_allclose(model.dec.resblocks[0].convs1[0].weight.detach().numpy(), w, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("version", ["v2", "v2ProPlus"])
+def test_s2_from_jax_keeps_enc_q_for_a_training_model(version):
+    """s2_from_jax carries the posterior encoder as the JAX exporter writes it;
+    a model built for training (posterior=True) loads it strictly, and an
+    inference model drops it."""
+    kw = dict(S2, version=version)
+    cfg = jconfig.S2Config(**kw)
+    params = _shapes(
+        JSynth(cfg), jnp.zeros((1, 8, cfg.ssl_dim)), jnp.zeros((1, 10, cfg.spec_channels)), jnp.asarray([10]),
+        jnp.zeros((1, 5), jnp.int32), jnp.asarray([5]),
+        sv_emb=jnp.zeros((1, cfg.sv_dim)) if cfg.is_pro else None, method=JSynth.init_all,
+    )
+    w = np.asarray(params["params"]["enc_q"]["enc"]["in_3"]["Conv_0"]["kernel"]).transpose(2, 1, 0)
+    sd = weights.s2_from_jax(params, cfg)
+    assert any(k.startswith("enc_q.") for k in sd) and "enc_q.enc.in_layers.3.weight_g" in sd
+    _assert_same({k: v for k, v in sd.items() if k.startswith("enc_q.")},
+                 {k: v for k, v in s2_params_to_torch(params, cfg).items() if k.startswith("enc_q.")})
+    model = SynthesizerTrn(pconfig.S2Config(**kw), posterior=True)
+    missing, unexpected = model.load_state_dict(sd, strict=True)  # weight norm folded, enc_q kept
+    assert not missing and not unexpected
+    np.testing.assert_allclose(model.enc_q.enc.in_layers[3].weight.detach().numpy(), w, rtol=1e-6, atol=1e-6)
+    inference = SynthesizerTrn(pconfig.S2Config(**kw))
+    inference.load_state_dict(sd, strict=True)
+    assert not hasattr(inference, "enc_q")
+
+
+@pytest.mark.parametrize("periods", [(2, 3, 5, 7, 11), (2, 3, 5, 7, 11, 17, 23)])
+def test_d_from_jax_is_read_back_by_the_jax_reader(periods):
+    """d_from_jax writes the reference names that the JAX package's
+    d_params_from_torch reads: read back there, every kernel comes back
+    unchanged; the port's discriminator loads it strictly, and folds a
+    DDP-prefixed, weight-normed copy to the same weights."""
+    from gpt_sovits_tpu.models.discriminators import MultiPeriodDiscriminator as JMPD
+    from gpt_sovits_tpu.utils.checkpoint_compat import d_params_from_torch
+    from gpt_sovits_tpu_torch.models.discriminators import MultiPeriodDiscriminator
+
+    x = jnp.zeros((1, 64, 1))
+    params = _shapes(JMPD(periods), x, x)
+    sd = weights.d_from_jax(params, periods)
+    back = d_params_from_torch(sd, periods)
+    jax.tree.map(lambda a, b: np.testing.assert_array_equal(np.asarray(a), b), back, params)
+    model = MultiPeriodDiscriminator(periods)
+    missing, unexpected = model.load_state_dict(sd, strict=True)
+    assert not missing and not unexpected
+    wn = {}
+    for k, v in sd.items():
+        if k.endswith(".weight"):
+            g = torch.sqrt((v**2).sum(dim=tuple(range(1, v.ndim)), keepdim=True))
+            wn[f"module.{k[:-len('weight')]}weight_g"], wn[f"module.{k[:-len('weight')]}weight_v"] = g, v
+        else:
+            wn[f"module.{k}"] = v
+    again = MultiPeriodDiscriminator(periods)
+    again.load_state_dict(wn, strict=True)
+    for (name, a), b in zip(again.state_dict().items(), model.state_dict().values()):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6, msg=name)
+
+
 def test_encoder_converters_load_strict():
     hcfg = dict(conv_dim=16, conv_kernels=(10, 3), conv_strides=(5, 2), hidden_size=24, num_layers=2,
                 num_heads=4, intermediate_size=32, pos_conv_kernel=8, pos_conv_groups=4)
