@@ -2,20 +2,23 @@
 step in `csrc/decode_step.cu`, K6 `csrc/snake_aa.cu` and its plan in
 `ops/snake_aa.py`, K3, K4's path and the s8 GEMM of K2/K3/K4 in
 `csrc/qmatmul.cu` and its plan in `ops/qmatmul.py`, K5 `csrc/qflash.cu`),
-in the continuous-batching pool that drives K1 (`infer/continuous.py`) or
-in the pipeline's zh BERT features (`infer/pipeline.py`), each of which
-must fail chip_smoke.py's check of that kernel or path on the card.
+in the continuous-batching pool that drives K1 (`infer/continuous.py`), in
+the pipeline's zh BERT features (`infer/pipeline.py`) or in the training
+BigVGAN's activations (`models/bigvgan.py` with K6's gradient refusal
+removed), each of which must fail chip_smoke.py's check of that kernel or
+path on the card.
 
     python3 broken_copies.py        # one CUDA card; exits non-zero if a copy passes its check
 
 Each copy is gpt_sovits_tpu_torch/ and chip_smoke.py under a temporary
-directory outside the checkout, with one line of one source replaced; its
-checks (chip_smoke.k1_case, k1_rows_case, snake_case, k3_case, k4_case,
-k5_case or gemm_case at a main-path shape, k1_sweep_case, serve_case,
-path_zh_case) run in a child process there, which builds the copy's kernels. The
-same checks run first on the unbroken sources and must pass. One JSON line
-per copy and check: the check's outcome and the end of its assertion
-message.
+directory outside the checkout, with one line of one source replaced (or,
+where a fault needs it, one line in each of several sources); its checks
+(chip_smoke.k1_case, k1_rows_case, snake_case, k3_case, k4_case, k5_case
+or gemm_case at a main-path shape, k1_sweep_case, serve_case,
+path_zh_case, train_bigvgan_case) run in a child process there, which
+builds the copy's kernels. The same checks run first on the unbroken
+sources and must pass. One JSON line per copy and check: the check's
+outcome and the end of its assertion message.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ QFLASH = "gpt_sovits_tpu_torch/csrc/qflash.cu"
 DS_PY = "gpt_sovits_tpu_torch/ops/decode_step.py"
 POOL = "gpt_sovits_tpu_torch/infer/continuous.py"
 PIPE = "gpt_sovits_tpu_torch/infer/pipeline.py"
+BIGVGAN = "gpt_sovits_tpu_torch/models/bigvgan.py"
 CHECKS = {
     # K1's whole step at full width, random and peaked inputs (step_cases)
     "k1_int8": "c.k1_case('int8', 1, g)",
@@ -68,8 +72,13 @@ CHECKS = {
     # the zh requests through the v2ProPlus pipeline with BERT at full width: path_zh (every g2p call's
     # BERT rows non-zero exactly on its zh phones, each seen by S1's bert_proj)
     "path_zh": "c.path_zh_case(g)",
+    # BigVGAN GAN training at full width on the plain snake composition: train_bigvgan (K1-K7
+    # launched 0 times, every gradient card vs CPU)
+    "train_bigvgan": "c.train_bigvgan_case(g)",
 }
-# (name, source, the line as it is, the broken line, checks that must fail)
+# (name, source, the line as it is, the broken line, checks that must fail); a fault
+# that needs lines in several sources gives a tuple of each
+
 COPIES = [
     ("K1: the grid barrier after the attention phase skipped", DS, "        grid_sync(a.sync, base + ++n_bar * GRID);  // ctx written",
      "        // barrier skipped", ("k1_int8", "k1_bf16")),
@@ -134,7 +143,16 @@ COPIES = [
      "    return step_splits(n_valid, kv_int8)[0], max(1, -(-n_valid // (32 * slot_r)))", ("k1_sweep_int8",)),
     ("pipeline: zh runs' BERT features replaced by zeros", PIPE,
      '        if lang == "zh" and self.bert is not None and word2ph is not None:', "        if False:", ("path_zh",)),
+    ("training BigVGAN: its activations through K6, the gradient refusal removed", (BIGVGAN, SNAKE_PY),
+     ("        fn = snake_aa if self.use_kernel else snake_aa_plain", '    refuse_grad("snake_aa", x, alpha, beta)'),
+     ("        fn = snake_aa", "    pass"), ("train_bigvgan",)),
 ]
+
+
+def edits(copy) -> list[tuple[str, str, str]]:
+    """A copy's (source, line as it is, broken line) edits."""
+    _, src, old, new, _ = copy
+    return list(zip(src, old, new)) if isinstance(src, tuple) else [(src, old, new)]
 
 
 def run_check(tree: Path, check: str) -> tuple[bool, str]:
@@ -159,13 +177,15 @@ def main() -> int:
             passed, tail = run_check(control, check)
             print(json.dumps({"copy": "unbroken", "check": check, "passed": passed, "message": tail}), flush=True)
             ok &= passed
-        for i, (name, src, old, new, checks) in enumerate(COPIES):
+        for i, copy in enumerate(COPIES):
+            name, checks = copy[0], copy[4]
             tree = copy_tree(Path(tmp) / f"copy{i}")
-            path = tree / src
-            text = path.read_text()
-            if text.count(old) != 1:
-                raise SystemExit(f"{name}: the line to break is not in {src} exactly once")
-            path.write_text(text.replace(old, new))
+            for src, old, new in edits(copy):
+                path = tree / src
+                text = path.read_text()
+                if text.count(old) != 1:
+                    raise SystemExit(f"{name}: the line to break is not in {src} exactly once")
+                path.write_text(text.replace(old, new))
             for check in checks:
                 passed, tail = run_check(tree, check)
                 print(json.dumps({"copy": name, "check": check, "failed": not passed, "message": tail}), flush=True)

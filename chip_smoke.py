@@ -68,14 +68,28 @@ batch 4, its full checkpoint and the `06`-headed .pth reloaded through the
 port's reader, strict but for enc_q; one G+D step's wall and device time
 under the profiler; one G+D step at B=1 from the trained weights on the
 card, on the CPU and on the CPU in float64, with the same batch, noise and
-segment starts: losses within relative 1e-4, every gradient within relative
-L2 1e-3 of the CPU's or, where it misses, no further from the float64
-gradient than 10x the CPU float32 run's own error and never more than 0.1;
-gradients zero to rounding left out, check_grads) and train_s1 (run_train_s1 at S1Config() with DPO and 4-step
+segment starts, the CPU's runs on the card's branches (every |x|, leaky
+ReLU, ReLU and clamp on the card's side of its kink, D's first update the
+card's: Branches, CardUpdate): losses within relative 1e-4, every gradient
+within relative L2 1e-3 of the CPU's or, where it misses, no further from
+the float64 gradient than 10x the CPU float32 run's own error and never
+more than 0.1; gradients zero to rounding left out, check_grads) and train_s1 (run_train_s1 at S1Config() with DPO and 4-step
 accumulation: two updates and a checkpoint, then a resumed run's third
 update; a micro-step's time under the profiler; one micro-step at B=1 card
 vs CPU: loss within 1e-5, gradients as S2's; a fixed batch's loss below 0.8x
-its first within 50 updates), K1-K6 counted 0 over both; gemm_tiles (the s8 GEMM alone at each tile width, K2/K4's and K3's,
+its first within 50 updates), train_v3 (run_train_v3 at v4, DiT 22 x 1024, a full
+fine-tune at batch 4 for one epoch of 4 steps: its checkpoint, the `04`-headed
+.pth reloaded strictly, the frozen ssl_proj/quantizer/enc_p unmoved, the
+native batch reader used; a step's time under the profiler; one step at B=1,
+256 mel frames, on the bootstrap branch, card vs CPU vs CPU float64 as S2's),
+train_v3_lora (the same at v3 with LoRA rank 32: the base unmoved, the
+merged export with lora_rank in its config, the factors' gradients held),
+train_bigvgan (BigVGAN at full width with use_kernel=False against MPD + MRD,
+4 steps at batch 4 on 64-frame segments of the corpus resampled to 24 kHz,
+read by the native reader; a step's time; one step at B=1, 16 frames, card
+vs CPU vs CPU float64 over G and D), K1-K7 counted 0 over each training
+phase; grad_refusal (K6's wrapper on the card refuses an input that
+requires a gradient, before its launch); gemm_tiles (the s8 GEMM alone at each tile width, K2/K4's and K3's,
 beside gemm_plan's choice); with --parent, compare_trees (K2, K4, K5, K3,
 K1's step and K6 for one BigVGAN call timed on the earlier tree's kernels
 and on this tree's, in turns);
@@ -2061,6 +2075,10 @@ ERR_CAP = 0.1
 # shift-invariant) is rounding noise in float32. It is left out where its
 # float64 norm is below ZERO_TO_ROUNDING x its float32 norm on the CPU.
 ZERO_TO_ROUNDING = 1e-6
+# The reference runs of a check step take the card's branches (Branches,
+# CardUpdate); at most this share of the replayed decisions may differ from
+# the ones the reference run would have taken itself.
+BRANCH_FLIP_SHARE = 1e-4
 
 
 def write_corpus(exp_dir, durations=TRAIN_DURATIONS, *, seed: int = 0, sr: int = 32000, ssl_dim: int = 768,
@@ -2098,6 +2116,10 @@ def write_corpus(exp_dir, durations=TRAIN_DURATIONS, *, seed: int = 0, sr: int =
     (exp / "2-name2text.txt").write_text("".join(texts), encoding="utf-8")
     (exp / "6-name2semantic.tsv").write_text("".join(sems), encoding="utf-8")
     return names
+
+
+def quiet(*a, **k) -> None:
+    return None
 
 
 def reference_copies(*models) -> tuple[list, list]:
@@ -2140,6 +2162,124 @@ def check_grads(card: dict, cpu: dict, exact: dict, what: str) -> dict:
             "max_within_bar": max(within.values(), default=None), "held_by_f64": held}
 
 
+class Branches:
+    """The branches a training step's graph takes: the side of each |x|,
+    leaky ReLU, ReLU and clamp(x, min) on a tensor that requires a gradient.
+    `with Branches() as card:` records them from the card's float32 run;
+    `with Branches(card) as br:` replays them into a reference run (the CPU's
+    float32 or float64 step), which then differentiates the same piecewise
+    smooth function as the card. A float32 run takes the other side of a
+    kink than float64 at a few elements in millions (|x| of a mel or feature
+    difference near 0), and the gradient jumps there by the kink's full
+    size, which no rounding bar covers (PERF.md section 6, PR 10). `flips`
+    counts, per kind, the replayed decisions that differ from the run's own;
+    `check` holds them to BRANCH_FLIP_SHARE of the decisions."""
+
+    _names = (("torch", "abs"), ("F", "leaky_relu"), ("torch", "relu"), ("torch", "clamp"))
+
+    def __init__(self, card: "Branches | None" = None):
+        self.replay = card is not None
+        self.log = card.log if self.replay else []
+        self.i = 0
+        self.flips, self.total = {}, {}
+
+    def _side(self, kind: str, x: torch.Tensor, own):
+        if not (torch.is_grad_enabled() and x.requires_grad and x.is_floating_point()):
+            return None
+        side = own(x.detach())
+        if not self.replay:
+            self.log.append((kind, side.cpu()))
+            return None
+        logged_kind, logged = self.log[self.i]
+        self.i += 1
+        assert logged_kind == kind and logged.shape == side.shape, ("branch order", self.i, kind, logged_kind)
+        logged = logged.to(x.device)
+        self.flips[kind] = self.flips.get(kind, 0) + int((logged != side).sum())
+        self.total[kind] = self.total.get(kind, 0) + logged.numel()
+        return logged
+
+    def __enter__(self) -> "Branches":
+        import torch.nn.functional as F
+
+        self._saved = [getattr(torch if m == "torch" else F, n) for m, n in self._names]
+        abs_, leaky_relu, relu, clamp = self._saved
+
+        def abs_b(x, *a, **k):
+            s = self._side("abs", x, torch.sign)
+            return abs_(x, *a, **k) if s is None else x * s.to(x.dtype)
+
+        def leaky_relu_b(x, negative_slope=0.01, inplace=False):
+            m = self._side("leaky_relu", x, lambda v: v > 0)
+            return leaky_relu(x, negative_slope, inplace) if m is None else torch.where(m, x, x * negative_slope)
+
+        def relu_b(x):
+            m = self._side("relu", x, lambda v: v > 0)
+            return relu(x) if m is None else x * m.to(x.dtype)
+
+        def clamp_b(x, min=None, max=None, **k):
+            if max is not None or not isinstance(min, (int, float)):
+                return clamp(x, min, max, **k)
+            m = self._side("clamp", x, lambda v: v >= min)
+            return clamp(x, min=min, **k) if m is None else torch.where(m, x, torch.full_like(x, min))
+
+        for (mod, name), fn in zip(self._names, (abs_b, leaky_relu_b, relu_b, clamp_b)):
+            setattr(torch if mod == "torch" else F, name, fn)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        import torch.nn.functional as F
+
+        for (mod, name), fn in zip(self._names, self._saved):
+            setattr(torch if mod == "torch" else F, name, fn)
+
+    def check(self, what: str) -> dict:
+        """The replay used every recorded decision, and few differ."""
+        assert self.i == len(self.log), (what, "branches replayed", self.i, len(self.log))
+        flips, total = sum(self.flips.values()), sum(self.total.values())
+        assert flips <= BRANCH_FLIP_SHARE * total, (what, self.flips, self.total)
+        return {k: [self.flips[k], self.total[k]] for k in self.total}
+
+
+class CardUpdate:
+    """A reference run's discriminator optimizer: it takes its own update,
+    then sets D's weights to the card's after the card's step, so that G's
+    half of the step runs against the same D. The first AdamW step moves an
+    element by lr * g / (|g| + eps): its sign follows g's where g is near 0.
+    `flips` counts the elements whose own update differs from the card's by
+    more than half the largest step; `check` holds them to
+    BRANCH_FLIP_SHARE of D's elements."""
+
+    def __init__(self, opt, module: torch.nn.Module, card_after: dict):
+        self.opt, self.card_after = opt, card_after
+        self.named = dict(module.named_parameters())
+        self.params = list(self.named.values())
+        self.flips = None
+
+    def zero_grad(self, *a, **k) -> None:
+        self.opt.zero_grad(*a, **k)
+
+    @torch.no_grad()
+    def step(self) -> bool:
+        before = {n: p.detach().clone() for n, p in self.named.items()}
+        self.opt.step()
+        big = max(float((p - before[n]).abs().max()) for n, p in self.named.items())
+        self.flips = 0
+        for n, p in self.named.items():
+            card = self.card_after[n].to(p.device, p.dtype)
+            self.flips += int(((p - card).abs() > big / 2).sum())
+            p.copy_(card)
+        return True
+
+    def check(self, what: str) -> list:
+        total = sum(p.numel() for p in self.params)
+        assert self.flips is not None and self.flips <= BRANCH_FLIP_SHARE * total, (what, self.flips, total)
+        return [self.flips, total]
+
+
+def params_after(module: torch.nn.Module) -> dict:
+    return {n: p.detach().clone() for n, p in module.named_parameters()}
+
+
 def launches_zero(what: str) -> dict:
     counts = all_launch_counts()
     assert not any(counts.values()), (what, counts)
@@ -2151,7 +2291,8 @@ def train_s2_phase(exp_dir: str, ckpt_dir: str, seed: int) -> dict:
     batch 4, its checkpoint and exports; the .pth reloaded through the port's
     reader; one step's time and profile; one G+D step at B=1 from the trained
     weights on the card, on the CPU and on the CPU in float64, with the same
-    batch, noise and segment starts (check_grads)."""
+    batch, noise and segment starts, the CPU's runs on the card's branches
+    and D update (Branches, CardUpdate; check_grads)."""
     from gpt_sovits_tpu_torch.models.discriminators import periods_for
     from gpt_sovits_tpu_torch.run import run_train_s2
     from gpt_sovits_tpu_torch.train import ckpt as ckpt_io
@@ -2163,10 +2304,11 @@ def train_s2_phase(exp_dir: str, ckpt_dir: str, seed: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     r = run_train_s2(exp_dir, ckpt_dir, version="v2ProPlus", batch_size=TRAIN_B, epochs=1, save_every=1,
-                     model_cfg=cfg, seed=seed, log=lambda *a, **k: None)
+                     model_cfg=cfg, seed=seed, log=quiet)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     assert r["step"] == 4 and all(np.isfinite(v) for v in r["metrics"].values()), r
+    assert r["reads"] == {"native": 4, "python": 0}, r["reads"]  # the native batch reader ran
     full = ckpt_io.latest_checkpoint(ckpt_dir)
     assert full and full.endswith("state_4"), full
     pth = Path(ckpt_dir) / "s2G-e1.pth"
@@ -2201,21 +2343,28 @@ def train_s2_phase(exp_dir: str, ckpt_dir: str, seed: int) -> dict:
     t = one["spec"].shape[1]
     noise = torch.randn((1, t, cfg.inter_channels), generator=torch.Generator().manual_seed(seed))
     starts = torch.tensor([max(int(one["spec_lengths"][0]) - cfg.segment_size, 0) // 2])
-    losses = {}
+    losses, branches, card_br, d_after = {}, {}, None, None
     for tag, b, g, d in (("card", batch_to(one, "cuda"), g_card, d_card), ("cpu", one, g_cpu, d_cpu),
                          ("f64", as_float64(one), g_f64, d_f64)):
-        fn = s2_train.make_train_step(g, d, s2_train.make_optimizer_g(g, tc, 4), s2_train.make_optimizer_d(d, tc, 4),
-                                      tc, mel)
-        losses[tag] = {k: float(v) for k, v in fn(b, noise=noise, ids_slice=starts).items()}
+        opt_d = s2_train.make_optimizer_d(d, tc, 4)
+        if card_br is not None:  # a reference run: the card's branches and D update
+            opt_d = CardUpdate(opt_d, d, d_after)
+        fn = s2_train.make_train_step(g, d, s2_train.make_optimizer_g(g, tc, 4), opt_d, tc, mel)
+        with Branches(card_br) as br:
+            losses[tag] = {k: float(v) for k, v in fn(b, noise=noise, ids_slice=starts).items()}
+        if card_br is None:
+            card_br, d_after = br, params_after(d)
+        else:
+            branches[tag] = {**br.check(f"S2 {tag}"), "d_update": opt_d.check(f"S2 {tag} D update")}
     for k in ("loss_d", "loss_g"):
         assert abs(losses["card"][k] - losses["cpu"][k]) <= 1e-4 * abs(losses["cpu"][k]), (k, losses)
-    card_vs_cpu = {"losses": losses,
+    card_vs_cpu = {"losses": losses, "branch_flips": branches,
                    "g": check_grads(grads_of(g_card), grads_of(g_cpu), grads_of(g_f64), "G"),
                    "d": check_grads(grads_of(d_card), grads_of(d_cpu), grads_of(d_f64), "D")}
     return {
         "run_s": run_s, "steps": r["step"], "metrics": r["metrics"], "checkpoint": Path(full).name,
         "exports": [Path(p).name for p in r["exports"]], "pth_header": "06", "reload_max_rel_err": reload_err,
-        "reload_missing": len(missing), "periods": list(disc.periods), "B": TRAIN_B,
+        "reload_missing": len(missing), "periods": list(disc.periods), "B": TRAIN_B, "reads": r["reads"],
         "spec_frames": int(batch["spec"].shape[1]), "step_profile": prof, "samples_per_s": samples_s,
         "card_vs_cpu": card_vs_cpu,
         "max_memory_GB": torch.cuda.max_memory_allocated() / 1e9,
@@ -2227,7 +2376,8 @@ def train_s1_phase(exp_dir: str, ckpt_dir: str, seed: int) -> dict:
     two epochs of 4 micro-steps (two updates, a checkpoint after them), then
     a resumed run for one more epoch (one more update, checkpointed); one
     micro-step's time and profile; one micro-step at B=1 from the trained
-    weights on the card, on the CPU and on the CPU in float64 (check_grads);
+    weights on the card, on the CPU and on the CPU in float64, the CPU's
+    runs on the card's branches (Branches; check_grads);
     and <= 50 updates on one fixed batch bring the loss below 0.8 x its first."""
     from gpt_sovits_tpu_torch.run import run_train_s1
     from gpt_sovits_tpu_torch.train import ckpt as ckpt_io
@@ -2235,7 +2385,6 @@ def train_s1_phase(exp_dir: str, ckpt_dir: str, seed: int) -> dict:
     from gpt_sovits_tpu_torch.train.data import BucketSampler, S1Dataset, batch_to
     from gpt_sovits_tpu_torch.utils.config import TrainConfig
 
-    quiet = lambda *a, **k: None
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     cfg = S1Config()
@@ -2273,10 +2422,15 @@ def train_s1_phase(exp_dir: str, ckpt_dir: str, seed: int) -> dict:
     small = min(sampler.epoch_batches(0), key=lambda idx: max(ds.lengths()[i] for i in idx))
     one = batch_to(ds.collate([small[0]]), "cpu")
     reject = s1_train.draw_reject(one["semantic_lens"], torch.Generator().manual_seed(seed))
-    losses = {}
+    losses, branches, card_br = {}, {}, None
     for tag, b, m in (("card", batch_to(one, "cuda"), m_card), ("cpu", one, m_cpu), ("f64", as_float64(one), m_f64)):
         o = s1_train.make_optimizer(m.parameters(), TrainConfig(grad_accum=4))  # the step computes, not applies
-        losses[tag] = float(s1_train.make_train_step(m, o, use_dpo=True)(b, reject=reject)["loss"])
+        with Branches(card_br) as br:
+            losses[tag] = float(s1_train.make_train_step(m, o, use_dpo=True)(b, reject=reject)["loss"])
+        if card_br is None:
+            card_br = br
+        else:
+            branches[tag] = br.check(f"S1 {tag}")
     assert abs(losses["card"] - losses["cpu"]) <= 1e-5 * abs(losses["cpu"]), losses
     grads = check_grads(grads_of(m_card), grads_of(m_cpu), grads_of(m_f64), "S1")
 
@@ -2294,10 +2448,284 @@ def train_s1_phase(exp_dir: str, ckpt_dir: str, seed: int) -> dict:
         "metrics": r2["metrics"], "B": TRAIN_B, "grad_accum": 4, "dpo": True,
         "tx_ty": [int(batch["phoneme_ids"].shape[1]), int(batch["semantic_ids"].shape[1])],
         "step_profile": prof, "target_tokens_per_step": tokens, "tokens_per_s": tokens_s,
-        "card_vs_cpu": {"loss": losses, "grads": grads},
+        "card_vs_cpu": {"loss": losses, "grads": grads, "branch_flips": branches},
         "fixed_batch": {"updates": len(curve) - 1, "first": curve[0], "last": curve[-1]},
         "max_memory_GB": torch.cuda.max_memory_allocated() / 1e9,
     }
+
+
+# ---------------------------------------------------------------------------
+# phases: train_v3, train_v3_lora, train_bigvgan (the rest of training)
+# ---------------------------------------------------------------------------
+
+V3_CPU_FRAMES = 256  # mel frames of the card-vs-CPU step (128 SSL frames, 64 spec frames)
+BIGVGAN_SEG = 64  # BigVGAN training segments: 64 mel frames, 16384 samples at 24 kHz
+BIGVGAN_CPU_SEG = 16  # the CPU float32 and float64 steps of the full-width G and D take most of the phase
+BIGVGAN_STEPS = 4
+
+
+def _cpu_v3_batch(ds, idx: int) -> dict:
+    """One item, B=1, cut to V3_CPU_FRAMES mel frames (the CPU's float64
+    reference of a full-width DiT step stays at seconds)."""
+    from gpt_sovits_tpu_torch.train.data import batch_to
+
+    one = batch_to(ds.collate([idx]), "cpu")
+    n = V3_CPU_FRAMES
+    cut = {"ssl": n // 2, "spec": n // 4, "mel": n}
+    out = {k: v[:, : cut[k]] if k in cut else v for k, v in one.items()}
+    out["spec_lengths"] = torch.clamp_max(out["spec_lengths"], n // 4)
+    out["mel_lengths"] = torch.clamp_max(out["mel_lengths"], n)
+    return out
+
+
+def _v3_draws(model, batch: dict, seed: int) -> dict:
+    """Draws for the card-vs-CPU step, on the bootstrap branch (its two
+    gradient-free estimator calls set the target)."""
+    from gpt_sovits_tpu_torch.train import s2_train_v3
+
+    draws = s2_train_v3.step_draws(model, batch, torch.Generator().manual_seed(seed))
+    draws["use_boot"] = torch.tensor(True)
+    return draws
+
+
+def _v3_common(r: dict, ckpt_dir: str, version: str, cfg, seed: int, lora_rank: int) -> dict:
+    """What both v3 phases check after run_train_v3: four steps, the native
+    reader, the checkpoint, the version-headed export reloading strictly, and
+    the weights that must not have moved (the frozen groups, or with LoRA
+    the whole base)."""
+    from gpt_sovits_tpu_torch.models.v3 import SynthesizerTrnV3
+    from gpt_sovits_tpu_torch.train import ckpt as ckpt_io
+    from gpt_sovits_tpu_torch.train.s2_train_v3 import FROZEN_V3, merge_lora
+
+    assert r["step"] == 4 and all(np.isfinite(v) for v in r["metrics"].values()), r["metrics"]
+    assert r["reads"] == {"native": 4, "python": 0}, r["reads"]  # the native batch reader ran
+    assert Path(ckpt_io.latest_checkpoint(ckpt_dir)).name == "state_4"
+    pth = Path(ckpt_dir) / f"s2G-{version}-e1.pth"
+    header = pth.read_bytes()[:2]
+    assert header == {"v3": b"03", "v4": b"04"}[version], header
+    ck = ckpt_io.load_torch_checkpoint(str(pth))
+    assert ck["config"] == ({"version": version, "lora_rank": lora_rank} if lora_rank else {"version": version})
+    fresh = SynthesizerTrnV3(cfg)
+    missing, unexpected = fresh.load_state_dict(ck["weight"], strict=True)
+    assert not missing and not unexpected
+    model = r["models"]["s2"]
+    trained = {k: v.float().cpu() for k, v in model.state_dict().items()}
+    exported = trained if r["lora"] is None else {k: v.cpu() for k, v in merge_lora(model.state_dict(), r["lora"]).items()}
+    want = ckpt_io.s2_reference_state(exported)
+    assert ck["weight"].keys() == want.keys()
+    bad = [k for k, v in want.items() if not torch.equal(ck["weight"][k], v.half())]
+    assert not bad, bad[:5]  # the export is the trained (merged) weights in fp16, exactly
+    # what a reload gives back: fp16 rounding, largest where a tensor's values are near fp16's subnormals
+    reload_err = max(rel_err(fresh.state_dict()[k], v) for k, v in exported.items())
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        init = SynthesizerTrnV3(cfg).state_dict()
+    still = [k for k in init if r["lora"] is not None or k.startswith(FROZEN_V3)]
+    moved = [k for k in still if not torch.equal(init[k], trained[k])]
+    assert still and not moved, moved[:5]
+    return {"checkpoint": "state_4", "exports": [Path(p).name for p in r["exports"]], "pth_header": header.decode(),
+            "reload_max_rel_err": reload_err, "unmoved_tensors": len(still), "reads": r["reads"]}
+
+
+def train_v3_phase(exp_dir: str, ckpt_dir: str, seed: int, *, version: str = "v4", lora_rank: int = 0) -> dict:
+    """run_train_v3 at full width (s2_config_for_version: DiT 22 x 1024), B=4,
+    one epoch of 4 steps (mel buckets 512 and 1024), a full fine-tune or LoRA
+    of `lora_rank`; its checkpoint and exports (_v3_common); one step's time
+    and profile on the largest batch; one step at B=1 (V3_CPU_FRAMES frames,
+    the bootstrap branch) from the trained weights on the card, on the CPU
+    and on the CPU in float64 with the same draws, the CPU's runs on the
+    card's branches (Branches; check_grads over the trained tensors: the
+    unfrozen ones, or the LoRA factors)."""
+    from gpt_sovits_tpu_torch.run import run_train_v3
+    from gpt_sovits_tpu_torch.train import s2_train_v3 as tv3
+    from gpt_sovits_tpu_torch.train.data import BucketSampler, V3Dataset, batch_to
+    from gpt_sovits_tpu_torch.utils.config import TrainConfig
+
+    cfg = s2_config_for_version(version)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = run_train_v3(exp_dir, ckpt_dir, version=version, batch_size=TRAIN_B, epochs=1, save_every=1,
+                     lora_rank=lora_rank, model_cfg=cfg, seed=seed, log=quiet)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    run_peak = torch.cuda.max_memory_allocated() / 1e9
+    rec = _v3_common(r, ckpt_dir, version, cfg, seed, lora_rank)
+    model, lora = r["models"]["s2"], r["lora"]
+
+    def copies(dev, dtype):
+        m = copy.deepcopy(model).to(dev, dtype)
+        fac = None if lora is None else {n: {k: t.detach().clone().to(dev, dtype).requires_grad_(True)
+                                              for k, t in f.items()} for n, f in lora.items()}
+        return m, fac
+
+    def stepper(m, fac):
+        tc = TrainConfig(batch_size=TRAIN_B)
+        if fac is None:
+            return tv3.make_train_step(m, tv3.make_optimizer(m, tc, 4))
+        return tv3.make_lora_train_step(m, fac, tv3.make_lora_optimizer(fac, tc, 4))
+
+    def grads(m, fac):
+        if fac is None:
+            return grads_of(m)
+        return {f"{n}.{k}": t.grad.detach().double().cpu() for n, f in fac.items() for k, t in f.items()}
+
+    refs = {tag: copies(*dd) for tag, dd in (("card", ("cuda", torch.float32)), ("cpu", ("cpu", torch.float32)),
+                                             ("f64", ("cpu", torch.float64)))}
+    ds = V3Dataset(exp_dir, version=version)
+    sampler = BucketSampler(ds.lengths(), TRAIN_B, seed=seed)
+    big = max(sampler.epoch_batches(0), key=lambda idx: max(ds.lengths()[i] for i in idx))
+    batch = batch_to(ds.collate(big), "cuda")
+    step = stepper(*copies("cuda", torch.float32))
+    rng = torch.Generator().manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile_steps(lambda i: step(batch, rng), 3, profiled=1)
+    step_peak = torch.cuda.max_memory_allocated() / 1e9
+
+    small = min(sampler.epoch_batches(0), key=lambda idx: max(ds.lengths()[i] for i in idx))
+    one = _cpu_v3_batch(ds, int(small[0]))
+    draws = _v3_draws(model, one, seed)
+    losses, branches, card_br = {}, {}, None
+    for tag, (m, fac) in refs.items():  # the card first: the reference runs replay its branches
+        b = batch_to(one, "cuda" if tag == "card" else "cpu")
+        b = as_float64(b) if tag == "f64" else b
+        with Branches(card_br) as br:
+            losses[tag] = float(stepper(m, fac)(b, draws=draws)["cfm_loss"])
+        if card_br is None:
+            card_br = br
+        else:
+            branches[tag] = br.check(f"v3 {version} {tag}")
+    assert abs(losses["card"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"]), losses
+    grads_rec = check_grads(*(grads(*refs[t]) for t in ("card", "cpu", "f64")), f"v3 {version}")
+    return {
+        "version": version, "lora_rank": lora_rank, "run_s": run_s, "steps": r["step"], "metrics": r["metrics"],
+        **rec, "B": TRAIN_B, "mel_frames": int(batch["mel"].shape[1]), "step_profile": prof,
+        "samples_per_s": TRAIN_B / (prof["wall_ms_per_step"] / 1e3),
+        "mel_frames_per_s": TRAIN_B * int(batch["mel"].shape[1]) / (prof["wall_ms_per_step"] / 1e3),
+        "card_vs_cpu": {"mel_frames": int(one["mel"].shape[1]), "losses": losses, "grads": grads_rec,
+                        "branch_flips": branches},
+        "max_memory_GB": {"run": run_peak, "step": step_peak},
+    }
+
+
+def bigvgan_batch(exp_dir: str, names: list, seg: int, seed: int, device) -> dict:
+    """BigVGAN training batch: each corpus wav read by the native reader,
+    resampled from 32 to 24 kHz, a `seg`-frame segment (x256 samples) at a
+    seeded offset, and its log-mel at MEL_V3. -> {"mel" (B, seg, 100),
+    "wav" (B, seg * 256, 1)}."""
+    from gpt_sovits_tpu_torch import native
+    from gpt_sovits_tpu_torch.dsp.audio_io import resample
+    from gpt_sovits_tpu_torch.dsp.mel import mel_spectrogram
+    from gpt_sovits_tpu_torch.utils.config import MEL_V3
+
+    paths = [str(Path(exp_dir) / "5-wav32k" / n) for n in names]
+    read = native.wav_batch(paths, max(Path(p).stat().st_size // 2 for p in paths) + 8)
+    assert read is not None and not read[3].any(), "the native reader did not read the corpus"
+    out, lengths = read[0], read[1]
+    rng = np.random.default_rng(seed)
+    n = seg * MEL_V3.hop_size
+    wavs = []
+    for i in range(len(paths)):
+        w = resample(out[i, : lengths[i]], 32000, MEL_V3.sampling_rate)
+        start = int(rng.integers(0, len(w) - n))
+        wavs.append(w[start : start + n])
+    wav = torch.from_numpy(np.stack(wavs))
+    with torch.no_grad():
+        mel = mel_spectrogram(wav, MEL_V3).transpose(1, 2)
+    assert mel.shape[1] == seg, mel.shape
+    return {"mel": mel.contiguous().to(device), "wav": wav[..., None].to(device)}
+
+
+def refuses_a_gradient_on_the_card() -> str:
+    """K6's wrapper on CUDA refuses an input that requires a gradient, before
+    its launch."""
+    from gpt_sovits_tpu_torch.ops import snake_aa as sa
+
+    x = torch.randn((1, 8, 64), device="cuda", requires_grad=True)
+    ab = torch.zeros(8, device="cuda")
+    before = sa.launch_counts()["snake_aa"]
+    try:
+        sa.snake_aa(x, ab, ab)
+    except RuntimeError as e:
+        assert "no backward" in str(e), e
+        assert sa.launch_counts()["snake_aa"] == before
+        with torch.no_grad():  # no gradient wanted: the kernel runs
+            sa.snake_aa(x, ab, ab)
+        return str(e)
+    raise AssertionError("snake_aa took an input that requires a gradient on the card")
+
+
+def train_bigvgan_phase(exp_dir: str, seed: int) -> dict:
+    """BigVGAN(BigVGANConfig(), use_kernel=False) at full width (24 kHz, x256,
+    1536 channels) against MPD (periods 2-11) + MRD, MEL_V3: BIGVGAN_STEPS
+    D-then-G steps at B=4 on 64-frame segments cut from the corpus's wavs
+    resampled to 24 kHz (read by the native reader); one step's time and
+    profile; one step at B=1 (BIGVGAN_CPU_SEG frames) from the trained weights
+    on the card, on the CPU and on the CPU in float64, the CPU's runs on the
+    card's branches and D update (Branches, CardUpdate; check_grads over G
+    and D)."""
+    from gpt_sovits_tpu_torch.models.bigvgan import AntiAliasedSnake, BigVGAN, BigVGANConfig
+    from gpt_sovits_tpu_torch.train import bigvgan_train as bt
+    from gpt_sovits_tpu_torch.utils.config import MEL_V3, TrainConfig
+
+    names = sorted(p.name for p in (Path(exp_dir) / "5-wav32k").iterdir())
+    tc = TrainConfig(batch_size=TRAIN_B, learning_rate=2e-4)
+    torch.manual_seed(seed)
+    gen = BigVGAN(BigVGANConfig(), use_kernel=False).to("cuda")
+    disc = bt.BigVGANDiscriminators().to("cuda")
+    assert not any(m.use_kernel for m in gen.modules() if isinstance(m, AntiAliasedSnake))
+    torch.cuda.reset_peak_memory_stats()
+    state = bt.init_state(gen, disc, tc)
+    step = bt.make_train_step(gen, disc, state, MEL_V3)
+    t0 = time.perf_counter()
+    metrics = []
+    for i in range(BIGVGAN_STEPS):
+        batch = bigvgan_batch(exp_dir, names[i * TRAIN_B : (i + 1) * TRAIN_B], BIGVGAN_SEG, seed + i, "cuda")
+        metrics.append({k: float(v) for k, v in step(batch).items()})
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    assert all(np.isfinite(v) for m in metrics for v in m.values()), metrics
+    launches_zero("train_bigvgan's training steps")  # (counted from 0 by the caller)
+    g_card, d_card = copy.deepcopy(gen), copy.deepcopy(disc)  # the trained weights, before the timed steps
+    (g_cpu, d_cpu), (g_f64, d_f64) = reference_copies(gen, disc)
+    prof = profile_steps(lambda i: step(batch), 3, profiled=1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    one = bigvgan_batch(exp_dir, names[:1], BIGVGAN_CPU_SEG, seed + 9, "cpu")
+    losses, branches, card_br, d_after = {}, {}, None, None
+    for tag, b, g, d in (("card", {k: v.cuda() for k, v in one.items()}, g_card, d_card), ("cpu", one, g_cpu, d_cpu),
+                         ("f64", as_float64(one), g_f64, d_f64)):
+        state = bt.init_state(g, d, tc)
+        if card_br is not None:  # a reference run: the card's branches and D update
+            state.opt_d = CardUpdate(state.opt_d, d, d_after)
+        fn = bt.make_train_step(g, d, state, MEL_V3)
+        with Branches(card_br) as br:
+            losses[tag] = {k: float(v) for k, v in fn(b).items()}
+        if card_br is None:
+            card_br, d_after = br, params_after(d)
+        else:
+            branches[tag] = {**br.check(f"BigVGAN {tag}"), "d_update": state.opt_d.check(f"BigVGAN {tag} D update")}
+    for k in ("loss_d", "loss_g"):
+        assert abs(losses["card"][k] - losses["cpu"][k]) <= 1e-4 * abs(losses["cpu"][k]), (k, losses)
+    return {
+        "run_s": run_s, "steps": BIGVGAN_STEPS, "metrics": metrics[-1], "B": TRAIN_B, "segment_frames": BIGVGAN_SEG,
+        "g_params": sum(p.numel() for p in gen.parameters()), "d_params": sum(p.numel() for p in disc.parameters()),
+        "step_profile": prof, "samples_per_s": TRAIN_B / (prof["wall_ms_per_step"] / 1e3),
+        "card_vs_cpu": {"segment_frames": BIGVGAN_CPU_SEG, "losses": losses, "branch_flips": branches,
+                        "g": check_grads(grads_of(g_card), grads_of(g_cpu), grads_of(g_f64), "BigVGAN G"),
+                        "d": check_grads(grads_of(d_card), grads_of(d_cpu), grads_of(d_f64), "BigVGAN D")},
+        "max_memory_GB": peak,
+    }
+
+
+def train_bigvgan_case(g: torch.Generator) -> dict:
+    """train_bigvgan on a fresh corpus, with K1-K7 counted 0 around it (the
+    check broken_copies.py runs)."""
+    with tempfile.TemporaryDirectory(prefix="gsv_smoke_train_") as tmp:
+        write_corpus(Path(tmp) / "exp", seed=0)
+        reset_all_launch_counts()
+        rec = train_bigvgan_phase(str(Path(tmp) / "exp"), 0)
+        rec["launches"] = launches_zero("train_bigvgan")
+    return rec
 
 
 def kernel_times(seed: int) -> dict:
@@ -2479,16 +2907,22 @@ def main(argv=None) -> int:
     emit({"phase": "cfm_long", **long})
     del pipe3
     torch.cuda.empty_cache()
-    # training: the v2 fine-tune recipe, S2 then S1, on a synthetic corpus; no K1-K6 launch
+    # training: the v2 fine-tune recipe (S2, then S1), v3/v4 CFM (full and LoRA) and BigVGAN, on a synthetic
+    # corpus; no K1-K7 launch
     with tempfile.TemporaryDirectory(prefix="gsv_smoke_train_") as tmp:
         exp = Path(tmp) / "exp"
         write_corpus(exp, seed=args.seed)
-        for name, phase in (("train_s2", train_s2_phase), ("train_s1", train_s1_phase)):
+        phases = (("train_s2", train_s2_phase), ("train_s1", train_s1_phase),
+                  ("train_v3", lambda e, c, s: train_v3_phase(e, c, s, version="v4")),
+                  ("train_v3_lora", lambda e, c, s: train_v3_phase(e, c, s, version="v3", lora_rank=32)),
+                  ("train_bigvgan", lambda e, c, s: train_bigvgan_phase(e, s)))
+        for name, phase in phases:
             reset_all_launch_counts()
             t0 = time.perf_counter()
             rec = phase(str(exp), str(Path(tmp) / name), args.seed)
             emit({"phase": name, "phase_s": time.perf_counter() - t0, **rec, "launches": launches_zero(name)})
             torch.cuda.empty_cache()
+    emit({"phase": "grad_refusal", "snake_aa": refuses_a_gradient_on_the_card()})
     emit({"phase": "gemm_tiles", **gemm_tile_phase(args.seed)})
     if args.parent is not None:
         emit({"phase": "compare_trees", **compare_trees(args.parent, args.seed)})

@@ -4,8 +4,11 @@ GPT_SoVITS/BigVGAN/bigvgan.py:226 and activations.py).
 
 Convolutions are `nn.Conv1d` / `nn.ConvTranspose1d` on PyTorch's (B, C, T)
 layout; every anti-aliased snakeβ (`AntiAliasedSnake`, the reference's
-`Activation1d`) goes through ops/snake_aa.py: K6 on a card, its plain twin
-on the CPU. The JAX package's lane-folded rewrite (ops/folded_bigvgan.py)
+`Activation1d`) goes through ops/snake_aa.py: with `use_kernel` (the
+serving default, the JAX package's `use_pallas`) through `snake_aa`, K6 on
+a card and its plain twin on the CPU; without it through `snake_aa_plain`'s
+up -> snakeβ -> down composition on every device, which is what training
+runs (K6 has no backward and refuses an input that needs a gradient). The JAX package's lane-folded rewrite (ops/folded_bigvgan.py)
 exists only for the TPU's 128-lane tiling and has no counterpart here.
 
 Module and parameter names are the reference checkpoint's: `conv_pre`,
@@ -25,8 +28,9 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
+from gpt_sovits_tpu_torch import at_least_f32
 from gpt_sovits_tpu_torch.models.vits import fold_weight_norm
-from gpt_sovits_tpu_torch.ops.snake_aa import snake_aa
+from gpt_sovits_tpu_torch.ops.snake_aa import snake_aa, snake_aa_plain
 
 
 @dataclass(frozen=True)
@@ -57,22 +61,25 @@ class _SnakeBeta(nn.Module):
 
 class AntiAliasedSnake(nn.Module):
     """Activation1d: up x2 -> snakeβ -> down x2 on (B, C, T), through K6
-    (ops/snake_aa.py); alpha and beta enter in f32 whatever the module's
-    dtype."""
+    (ops/snake_aa.py `snake_aa`) with use_kernel, else through the plain
+    composition `snake_aa_plain`; alpha and beta enter in f32 whatever the
+    module's dtype (f64 stays f64)."""
 
-    def __init__(self, channels: int, logscale: bool = True):
+    def __init__(self, channels: int, logscale: bool = True, use_kernel: bool = True):
         super().__init__()
         self.logscale = logscale
+        self.use_kernel = use_kernel
         self.act = _SnakeBeta(channels, logscale)
 
     def forward(self, x):
-        return snake_aa(x.contiguous(), self.act.alpha.float().contiguous(), self.act.beta.float().contiguous(),
-                        logscale=self.logscale)
+        fn = snake_aa if self.use_kernel else snake_aa_plain
+        return fn(x.contiguous(), at_least_f32(self.act.alpha).contiguous(),
+                  at_least_f32(self.act.beta).contiguous(), logscale=self.logscale)
 
 
 class AMPBlock1(nn.Module):
     def __init__(self, channels: int, kernel_size: int = 3, dilations: Sequence[int] = (1, 3, 5),
-                 logscale: bool = True):
+                 logscale: bool = True, use_kernel: bool = True):
         super().__init__()
         self.convs1 = nn.ModuleList(
             nn.Conv1d(channels, channels, kernel_size, dilation=d, padding=(kernel_size - 1) * d // 2)
@@ -80,7 +87,8 @@ class AMPBlock1(nn.Module):
         self.convs2 = nn.ModuleList(
             nn.Conv1d(channels, channels, kernel_size, padding=(kernel_size - 1) // 2) for _ in dilations)
         # stored interleaved as in the reference: [act1_0, act2_0, act1_1, ...]
-        self.activations = nn.ModuleList(AntiAliasedSnake(channels, logscale) for _ in range(2 * len(dilations)))
+        self.activations = nn.ModuleList(AntiAliasedSnake(channels, logscale, use_kernel)
+                                         for _ in range(2 * len(dilations)))
 
     def forward(self, x):
         for d, (c1, c2) in enumerate(zip(self.convs1, self.convs2)):
@@ -89,7 +97,10 @@ class AMPBlock1(nn.Module):
 
 
 class BigVGAN(nn.Module):
-    def __init__(self, cfg: BigVGANConfig = BigVGANConfig()):
+    """use_kernel: every activation through K6 (serving), or through the
+    plain composition (training, train/bigvgan_train.py)."""
+
+    def __init__(self, cfg: BigVGANConfig = BigVGANConfig(), *, use_kernel: bool = True):
         super().__init__()
         self.cfg = c = cfg
         uic = c.upsample_initial_channel
@@ -101,8 +112,8 @@ class BigVGAN(nn.Module):
             ch = uic // (2 ** (i + 1))
             self.ups.append(nn.ModuleList([nn.ConvTranspose1d(uic // (2**i), ch, k, u, padding=(k - u) // 2)]))
             for rk, rd in zip(c.resblock_kernel_sizes, c.resblock_dilation_sizes):
-                self.resblocks.append(AMPBlock1(ch, rk, tuple(rd), c.snake_logscale))
-        self.activation_post = AntiAliasedSnake(ch, c.snake_logscale)
+                self.resblocks.append(AMPBlock1(ch, rk, tuple(rd), c.snake_logscale, use_kernel))
+        self.activation_post = AntiAliasedSnake(ch, c.snake_logscale, use_kernel)
         self.conv_post = nn.Conv1d(ch, 1, 7, padding=3, bias=c.use_bias_at_final)
 
     def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):

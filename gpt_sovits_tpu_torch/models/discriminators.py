@@ -93,8 +93,8 @@ def _mrd_magnitude(x, n_fft: int, hop: int, win: int):
     n = np.arange(n_fft, dtype=np.float64)[:, None]
     k = np.arange(n_fft // 2 + 1, dtype=np.float64)[None, :]
     ang = 2.0 * np.pi * n * k / n_fft
-    cos = torch.from_numpy(np.cos(ang).astype(np.float32)).to(x.device)
-    sin = torch.from_numpy((-np.sin(ang)).astype(np.float32)).to(x.device)
+    cos = torch.from_numpy(np.cos(ang)).to(x.device, x.dtype)  # float32, or float64 for a float64 run
+    sin = torch.from_numpy(-np.sin(ang)).to(x.device, x.dtype)
     re, im = frames @ cos, frames @ sin
     return torch.sqrt(re * re + im * im + 1e-9).transpose(1, 2)
 
@@ -206,9 +206,11 @@ def generator_loss(disc_outputs):
     return loss, gen_losses
 
 
-def kl_loss(z_p, logs_q, m_p, logs_p, z_mask):
+def kl_loss(z_p, logs_q, m_p, logs_p, z_mask, mask_total=None):
     """KL(q||p) between the posterior and the flow-mapped prior (losses.py:45);
-    all (B,T,C), z_mask (B,T,1)."""
+    all (B,T,C), z_mask (B,T,1). The sum is divided by the mask's sum, or by
+    `mask_total` where given (a data-parallel rank's share of the global
+    batch divides by the global count)."""
     z_p, logs_q, m_p, logs_p = (at_least_f32(v) for v in (z_p, logs_q, m_p, logs_p))
     kl = logs_p - logs_q - 0.5 + 0.5 * ((z_p - m_p) ** 2) * torch.exp(-2.0 * logs_p)
-    return torch.sum(kl * z_mask) / torch.sum(z_mask)
+    return torch.sum(kl * z_mask) / (torch.sum(z_mask) if mask_total is None else mask_total)

@@ -26,7 +26,8 @@ Two block paths, as in the JAX package:
 
 Where the JAX package computes in f32 from bf16 weights (the time
 embeddings, the ConvNeXt text stack, every LayerNorm's statistics), so does
-this port: weights are cast to the activation's dtype at use there.
+this port: weights are cast to the activation's dtype at use there. A
+float64 model (a training step's reference run) stays in float64.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from gpt_sovits_tpu_torch import at_least_f32
 from gpt_sovits_tpu_torch.ops.qflash import flash_attn_int8
 from gpt_sovits_tpu_torch.ops.qmatmul import qdense_int8, qdense_out_int8, qkv_rope_int8
 
@@ -72,7 +74,7 @@ def _lin(layer: nn.Linear, x):
 
 def _ln_f32(x, eps: float = 1e-6):
     """Affine-free LayerNorm with f32 statistics and an f32 result."""
-    xf = x.float()
+    xf = at_least_f32(x)
     mu = xf.mean(-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(-1, keepdim=True)
     return (xf - mu) * torch.rsqrt(var + eps)
@@ -91,7 +93,7 @@ def sinus_position_embedding(t, dim: int, scale: float = 1000.0):
     """(B,) f32 -> (B, dim): log-spaced sin || cos (modules.py:149)."""
     half = dim // 2
     emb = math.log(10000.0) / (half - 1)
-    freqs = torch.exp(torch.arange(half, dtype=torch.float32, device=t.device) * -emb)
+    freqs = torch.exp(torch.arange(half, dtype=t.dtype, device=t.device) * -emb)
     arg = scale * t[:, None] * freqs[None, :]
     return torch.cat([torch.sin(arg), torch.cos(arg)], dim=-1)
 
@@ -169,7 +171,7 @@ class TimestepEmbedding(nn.Module):
 
     def forward(self, t):
         """(B,) f32 -> (B, dim) f32."""
-        h = sinus_position_embedding(t.float(), self.freq_embed_dim)
+        h = sinus_position_embedding(at_least_f32(t), self.freq_embed_dim)
         return _lin(self.time_mlp[2], F.silu(_lin(self.time_mlp[0], h)))
 
 
@@ -222,9 +224,10 @@ class TextEmbedding(nn.Module):
         if drop_text:
             text = torch.zeros_like(text)
         t = text.shape[1]
-        table = torch.from_numpy(precompute_freqs_cis(self.text_dim, self.max_pos)).to(text.device)
+        text = at_least_f32(text)
+        table = torch.from_numpy(precompute_freqs_cis(self.text_dim, self.max_pos)).to(text.device, text.dtype)
         pos = table[torch.clamp(torch.arange(t, device=text.device), max=self.max_pos - 1)]
-        text = _where_mask(mask, text.float() + pos[None])
+        text = _where_mask(mask, text + pos[None])
         for blk in self.text_blocks:
             text = blk(text, mask)
         return text
@@ -330,7 +333,7 @@ class DiTBlock(nn.Module):
         q = rope_rotate(a.to_q(norm), tl, c.dim_head).reshape(b, tl, c.heads, c.dim_head)
         k = rope_rotate(a.to_k(norm), tl, c.dim_head).reshape(b, tl, c.heads, c.dim_head)
         v = a.to_v(norm).reshape(b, tl, c.heads, c.dim_head)
-        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / np.sqrt(c.dim_head)
+        scores = torch.einsum("bqhd,bkhd->bhqk", at_least_f32(q), at_least_f32(k)) / np.sqrt(c.dim_head)
         if mask is not None:
             scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
         probs = torch.softmax(scores, dim=-1).to(x.dtype)

@@ -19,7 +19,7 @@ import ctypes
 import torch
 
 from gpt_sovits_tpu_torch.ops import build
-from gpt_sovits_tpu_torch.ops.qmatmul import INV127, check, on_card, raise_on
+from gpt_sovits_tpu_torch.ops.qmatmul import INV127, check, on_card, raise_on, refuse_grad
 
 HEAD_DIM = 64  # the only head width the kernel takes
 KEY_TILE = 128  # keys per tile (csrc/qflash.cu KB): V's int8 copy is padded to it
@@ -97,6 +97,7 @@ def flash_attn_int8(q, k, v, mask=None, *, sm_scale: float):
         check("mask", mask, torch.float32, (b, t), dev, card)
     if not card:
         return flash_attn_int8_plain(q, k, v, mask, sm_scale=sm_scale)
+    refuse_grad("flash_attn_int8", q, k, v, mask)
     if dh != HEAD_DIM:
         raise ValueError(f"flash_attn_int8 takes dim_head {HEAD_DIM}, got {dh}")
     t_pad = key_pad(t)

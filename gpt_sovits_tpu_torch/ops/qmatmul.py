@@ -207,6 +207,16 @@ def raise_on(rc: int, name: str):
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise before a launch that would cut a gradient: the kernels have no
+    backward, and their output carries no grad_fn. A CPU tensor takes the
+    differentiable twin instead, so training runs the plain composition on
+    every device (the JAX package trains without its kernels too)."""
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward; an input requires a gradient "
+                           "(run the plain version, or call under torch.no_grad())")
+
+
 def on_card(t) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
     (take the twin); any other device raises."""
@@ -308,6 +318,7 @@ def qdense_int8(x, wq, sw, bias, ln_mod=None, res_gate=None, mask=None, *, act=N
         check("mask", mask, torch.float32, (b, t), dev, card)
     if not card:
         return qdense_int8_plain(x, wq, sw, bias, ln_mod, res_gate, mask, act=act)
+    refuse_grad("qdense_int8", x, wq, sw, bias, *(ln_mod or ()), *(res_gate or ()), mask)
     squeeze, x = x.ndim == 2, x3
     xq, sx = _row_quant(x, ln_mod)
     out = _gemm(xq, sx, wq, sw, bias, res, gate, mask, t, gelu=act == "gelu")
@@ -367,6 +378,7 @@ def qkv_rope_int8(x, wq, wk, wv, sq, sk, sv, bq, bk, bv, ln_mod=None, *, dim_hea
     _check_ln(ln_mod, b, k, dev, card)
     if not card:
         return qkv_rope_int8_plain(x, wq, wk, wv, sq, sk, sv, bq, bk, bv, ln_mod, dim_head=dim_head, q_scale=q_scale)
+    refuse_grad("qkv_rope_int8", x, wq, wk, wv, sq, sk, sv, bq, bk, bv, *(ln_mod or ()))
     xq, sx = _row_quant(x, ln_mod)
     return _qkv_gemm(xq, sx, (wq, wk, wv), (sq, sk, sv), (bq, bk, bv), b, t, dim_head, q_scale)
 
@@ -397,6 +409,7 @@ def qdense_out_int8(attn, wq, sw, bias, res_gate_mask=None):
             check("mask", mask, torch.float32, (b, t), dev, card)
     if not card:
         return qdense_out_int8_plain(attn, wq, sw, bias, res_gate_mask)
+    refuse_grad("qdense_out_int8", attn, wq, sw, bias, *(res_gate_mask or ()))
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _lib()
     xq = torch.empty((b * t, k), dtype=torch.int8, device=dev)

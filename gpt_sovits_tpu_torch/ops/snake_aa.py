@@ -30,8 +30,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gpt_sovits_tpu_torch import at_least_f32
 from gpt_sovits_tpu_torch.ops import build
-from gpt_sovits_tpu_torch.ops.qmatmul import check, on_card, raise_on
+from gpt_sovits_tpu_torch.ops.qmatmul import check, on_card, raise_on, refuse_grad
 
 TAPS = 12  # filter taps of the x2 resampling (csrc/snake_aa.cu TAPS)
 KERNELS = ("snake_aa",)
@@ -118,8 +119,9 @@ def snake_beta(x, alpha, beta, logscale: bool = True):
 
 
 def snake_aa_plain(x, alpha, beta, *, logscale: bool = True):
-    """upsample1d -> snake_beta -> downsample1d in f32; returns x.dtype."""
-    h = snake_beta(upsample1d(x.float()), alpha.float(), beta.float(), logscale)
+    """upsample1d -> snake_beta -> downsample1d in f32 (f64 stays f64);
+    returns x.dtype."""
+    h = snake_beta(upsample1d(at_least_f32(x)), at_least_f32(alpha), at_least_f32(beta), logscale)
     return downsample1d(h).to(x.dtype)
 
 
@@ -263,6 +265,7 @@ def snake_aa(x, alpha, beta, *, logscale: bool = True):
         return snake_aa_plain(x, alpha, beta, logscale=logscale)
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"x: dtype {x.dtype}, expected bfloat16 or float32")
+    refuse_grad("snake_aa", x, alpha, beta)
     y = torch.empty_like(x)
     rc = _lib().gsv_snake_aa(
         x.data_ptr(), alpha.data_ptr(), beta.data_ptr(), y.data_ptr(), b * c, c, t, int(logscale),

@@ -1,17 +1,27 @@
 """Library entry points for training (port of gpt_sovits_tpu/run.py
-`run_train_s1` / `run_train_s2`): the v2 fine-tune recipe, S2 first, then
-S1, from a prepared experiment directory (train/data.py) to full
-checkpoints and reference-format weights in `ckpt_dir`.
+`run_train_s1` / `run_train_s2` / `run_train_v3`): the v2 fine-tune recipe,
+S2 first, then S1, and the v3/v4 CFM fine-tune (full or LoRA), from a
+prepared experiment directory (train/data.py) to full checkpoints and
+reference-format weights in `ckpt_dir`.
 
-Both run on the CUDA device unless `device` says otherwise (`device="cpu"`),
+All run on the CUDA device unless `device` says otherwise (`device="cpu"`),
 in float32 with TF32 off (`resolve_device`). A run resumes from the newest
 full checkpoint in `ckpt_dir` at the epoch after it; without one it starts
-from `pretrained_*` reference checkpoints when given, else from weights
+from `pretrained*` reference checkpoints when given, else from weights
 made from `seed`. Each epoch's randomness (DPO rejects, posterior noise,
-segment starts) comes from a CPU generator seeded from (seed, epoch), so a
-resumed run equals an uninterrupted one and a card run draws what a CPU run
-draws. Every `save_every` epochs: a full checkpoint `state_{step}`, and
-fp16 exports `s1-e{n}.ckpt`/`.npz` or `s2G-e{n}.pth`/`.npz`.
+segment starts, CFM draws) comes from a CPU generator seeded from (seed,
+epoch), so a resumed run equals an uninterrupted one and a card run draws
+what a CPU run draws. Every `save_every` epochs: a full checkpoint
+`state_{step}`, and fp16 exports `s1-e{n}.ckpt`/`.npz`, `s2G-e{n}.pth`/
+`.npz` or `s2G-{version}-e{n}.pth`/`.npz`.
+
+`data_parallel=True` trains on every process of the group that
+`parallel/launch.init` joined, as the JAX package's rules have it
+(gpt_sovits_tpu/run.py:33-80): a world of one runs exactly as without it;
+`batch_size` must divide by the world; each rank draws its batch_size /
+world items through BucketSampler(num_shards=world, shard_id=rank) and its
+randomness from (seed, epoch, rank); the step is the global batch's
+(parallel/sync.py); rank 0 alone writes checkpoints, exports and metrics.
 """
 
 from __future__ import annotations
@@ -22,12 +32,39 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-DP_SLICE = "data-parallel training (DDP over NCCL) is slice 6b of the port; train on one device"
+
+def epoch_generator(seed: int, epoch: int, rank: int = 0) -> torch.Generator:
+    """The CPU generator of one epoch's draws on one rank (rank 0's is the
+    single-process run's)."""
+    key = [seed, epoch] if rank == 0 else [seed, epoch, rank]
+    return torch.Generator().manual_seed(int(np.random.SeedSequence(key).generate_state(1)[0]))
 
 
-def epoch_generator(seed: int, epoch: int) -> torch.Generator:
-    """The CPU generator of one epoch's draws."""
-    return torch.Generator().manual_seed(int(np.random.SeedSequence([seed, epoch]).generate_state(1)[0]))
+def _dp_world(data_parallel: bool, batch_size: int) -> tuple[int, int]:
+    """(world, rank) of a data-parallel run; (1, 0) without one or in a
+    group of one. The steps sum their gradients over any process group
+    (parallel/sync.py), so a group of more than one needs
+    data_parallel=True: the flag and the group decide together."""
+    from gpt_sovits_tpu_torch.parallel import launch, sync
+
+    n = sync.world()
+    if n > 1 and not data_parallel:
+        raise ValueError(f"a process group of {n} is initialised: pass data_parallel=True")
+    if n == 1:
+        return 1, 0
+    if batch_size % n:
+        raise ValueError(f"batch_size {batch_size} not divisible by {n} processes")
+    return n, launch.process_index()
+
+
+def _sampler(lengths, batch_size: int, seed: int, world: int, rank: int):
+    from gpt_sovits_tpu_torch.train.data import BucketSampler
+
+    sampler = BucketSampler(lengths, batch_size // world, seed=seed, num_shards=world, shard_id=rank)
+    n_batches = len(sampler.epoch_batches(0))
+    if not n_batches:
+        raise RuntimeError("no training batches (dataset too small for batch size)")
+    return sampler, n_batches
 
 
 def _check_f32(*models) -> None:
@@ -61,20 +98,17 @@ def run_train_s1(exp_dir: str, ckpt_dir: str, *, batch_size: int = 8, epochs: in
     from gpt_sovits_tpu_torch import resolve_device
     from gpt_sovits_tpu_torch.models.t2s import T2SDecoder
     from gpt_sovits_tpu_torch.train import ckpt as ckpt_io
-    from gpt_sovits_tpu_torch.train.data import BucketSampler, S1Dataset, batch_to, data_iterator
+    from gpt_sovits_tpu_torch.train.data import S1Dataset, batch_to, data_iterator
     from gpt_sovits_tpu_torch.train.s1_train import make_optimizer, make_train_step
     from gpt_sovits_tpu_torch.utils.config import S1Config, TrainConfig
     from gpt_sovits_tpu_torch.utils.metrics import MetricsLogger
 
-    if data_parallel:
-        raise NotImplementedError(DP_SLICE)
+    world, rank = _dp_world(data_parallel, batch_size)
     dev = resolve_device(device)
     cfg = model_cfg or S1Config()
     tc = TrainConfig(batch_size=batch_size, epochs=epochs, grad_accum=4, seed=seed)
     ds = S1Dataset(exp_dir, bert_dim=cfg.bert_dim)
-    sampler = BucketSampler(ds.lengths(), tc.batch_size, seed=tc.seed)
-    if not sampler.epoch_batches(0):
-        raise RuntimeError("no training batches (dataset too small for batch size)")
+    sampler, _ = _sampler(ds.lengths(), tc.batch_size, tc.seed, world, rank)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(tc.seed)
         model = T2SDecoder(cfg)
@@ -92,15 +126,17 @@ def run_train_s1(exp_dir: str, ckpt_dir: str, *, batch_size: int = 8, epochs: in
         model.load_state_dict({k.removeprefix("model."): v for k, v in ck.get("weight", ck).items()})
         log("loaded pretrained", pretrained_s1)
     train_step = make_train_step(model, opt, use_dpo=dpo)
-    mlog = MetricsLogger(os.path.join(ckpt_dir, "logs"), echo=False)
+    mlog = MetricsLogger(os.path.join(ckpt_dir, "logs"), echo=False) if rank == 0 else None
     metrics = {}
     try:
         for epoch in range(start_epoch, tc.epochs):
-            gen = epoch_generator(tc.seed, epoch)
+            gen = epoch_generator(tc.seed, epoch, rank)
             for batch in data_iterator(ds, sampler, epoch):
                 metrics = train_step(batch_to(batch, dev), gen)
                 step += 1
             metrics = {k: float(v) for k, v in metrics.items()}
+            if rank:
+                continue
             log(f"epoch {epoch}: loss={metrics['loss']:.3f} acc={metrics['acc']:.3f}")
             mlog.log(step, **metrics)
             if (epoch + 1) % save_every == 0:
@@ -115,7 +151,8 @@ def run_train_s1(exp_dir: str, ckpt_dir: str, *, batch_size: int = 8, epochs: in
                                                           config={"model": {"t2s": "gpt_sovits_tpu_torch"}},
                                                           info=info))
     finally:
-        mlog.close()
+        if mlog is not None:
+            mlog.close()
     log("train-s1 done")
     return {"step": step, "epoch": tc.epochs, "resumed_from": state and state["path"], "exports": exports,
             "metrics": metrics, "models": {"s1": model}}
@@ -133,22 +170,18 @@ def run_train_s2(exp_dir: str, ckpt_dir: str, *, version: str = "v2", batch_size
     from gpt_sovits_tpu_torch.models.discriminators import MultiPeriodDiscriminator, periods_for
     from gpt_sovits_tpu_torch.models.vits import SynthesizerTrn
     from gpt_sovits_tpu_torch.train import ckpt as ckpt_io
-    from gpt_sovits_tpu_torch.train.data import BucketSampler, S2Dataset, batch_to, data_iterator
+    from gpt_sovits_tpu_torch.train.data import S2Dataset, batch_to, data_iterator
     from gpt_sovits_tpu_torch.train.s2_train import make_optimizer_d, make_optimizer_g, make_train_step
     from gpt_sovits_tpu_torch.utils.config import MelConfig, TrainConfig, s2_config_for_version
     from gpt_sovits_tpu_torch.utils.metrics import MetricsLogger
 
-    if data_parallel:
-        raise NotImplementedError(DP_SLICE)
+    world, rank = _dp_world(data_parallel, batch_size)
     dev = resolve_device(device)
     s2 = model_cfg or s2_config_for_version(version)
     tc = TrainConfig(batch_size=batch_size, epochs=epochs, seed=seed)
     mel = MelConfig()
     ds = S2Dataset(exp_dir, version=version, mel_cfg=mel)
-    sampler = BucketSampler(ds.lengths(), tc.batch_size, seed=tc.seed)
-    n_batches = len(sampler.epoch_batches(0))
-    if not n_batches:
-        raise RuntimeError("no training batches (dataset too small for batch size)")
+    sampler, n_batches = _sampler(ds.lengths(), tc.batch_size, tc.seed, world, rank)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(tc.seed)
         gen = SynthesizerTrn(s2, posterior=True)
@@ -178,15 +211,17 @@ def run_train_s2(exp_dir: str, ckpt_dir: str, *, version: str = "v2", batch_size
             disc.load_state_dict(ck.get("weight", ck))
             log("loaded pretrained", pretrained_s2d)
     train_step = make_train_step(gen, disc, opt_g, opt_d, tc, mel)
-    mlog = MetricsLogger(os.path.join(ckpt_dir, "logs"), echo=False)
+    mlog = MetricsLogger(os.path.join(ckpt_dir, "logs"), echo=False) if rank == 0 else None
     metrics = {}
     try:
         for epoch in range(start_epoch, tc.epochs):
-            rng = epoch_generator(tc.seed, epoch)
+            rng = epoch_generator(tc.seed, epoch, rank)
             for batch in data_iterator(ds, sampler, epoch):
                 metrics = train_step(batch_to(batch, dev), rng)
                 step += 1
             metrics = {k: float(v) for k, v in metrics.items()}
+            if rank:
+                continue
             log(f"epoch {epoch}: " + " ".join(f"{k}={v:.3f}" for k, v in metrics.items()))
             mlog.log(step, **metrics)
             if (epoch + 1) % save_every == 0:
@@ -202,7 +237,99 @@ def run_train_s2(exp_dir: str, ckpt_dir: str, *, version: str = "v2", batch_size
                                                           model_version=version, config={"version": version},
                                                           info=info))
     finally:
-        mlog.close()
+        if mlog is not None:
+            mlog.close()
     log("train-s2 done")
     return {"step": step, "epoch": tc.epochs, "resumed_from": state and state["path"], "exports": exports,
-            "metrics": metrics, "models": {"g": gen, "d": disc}}
+            "metrics": metrics, "models": {"g": gen, "d": disc}, "reads": dict(ds.reads)}
+
+
+def run_train_v3(exp_dir: str, ckpt_dir: str, *, version: str = "v3", batch_size: int = 4, epochs: int = 4,
+                 save_every: int = 2, lora_rank: int = 0, pretrained: Optional[str] = None, model_cfg=None,
+                 seed: int = 1234, data_parallel: bool = False, device=None,
+                 log: Callable[..., None] = print) -> dict:
+    """v3/v4 CFM fine-tune (reference s2_train_v3.py), or LoRA on the DiT's
+    attention projections when lora_rank > 0 (s2_train_v3_lora.py). The
+    exports hold the merged weights, with {"lora_rank": r} in `config` for
+    LoRA runs. -> {"step", "epoch", "resumed_from", "exports", "metrics",
+    "models" ({"s2": SynthesizerTrnV3}), "lora" (the factors, or None),
+    "reads" (batches read natively / by Python)}."""
+    from gpt_sovits_tpu_torch import resolve_device
+    from gpt_sovits_tpu_torch.models.v3 import SynthesizerTrnV3
+    from gpt_sovits_tpu_torch.train import ckpt as ckpt_io
+    from gpt_sovits_tpu_torch.train.data import V3Dataset, batch_to, data_iterator
+    from gpt_sovits_tpu_torch.train.s2_train_v3 import (
+        init_lora, make_lora_optimizer, make_lora_train_step, make_optimizer, make_train_step, merge_lora,
+    )
+    from gpt_sovits_tpu_torch.utils.config import TrainConfig, s2_config_for_version
+    from gpt_sovits_tpu_torch.utils.metrics import MetricsLogger
+
+    if version not in ("v3", "v4"):
+        raise ValueError(f"run_train_v3 trains v3/v4, got {version!r}")
+    world, rank = _dp_world(data_parallel, batch_size)
+    dev = resolve_device(device)
+    cfg = model_cfg or s2_config_for_version(version)
+    tc = TrainConfig(batch_size=batch_size, epochs=epochs, seed=seed)
+    ds = V3Dataset(exp_dir, version=version)
+    sampler, n_batches = _sampler(ds.lengths(), tc.batch_size, tc.seed, world, rank)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(tc.seed)
+        model = SynthesizerTrnV3(cfg)
+    model.to(dev)
+    _check_f32(model)
+    lora = None
+    if lora_rank > 0:
+        lora = init_lora(model, lora_rank, torch.Generator().manual_seed(tc.seed + 1))
+        opt = make_lora_optimizer(lora, tc, n_batches)
+    else:
+        opt = make_optimizer(model, tc, n_batches)
+    step, start_epoch, exports = 0, 0, []
+    state = _resume(ckpt_dir, dev, log)
+    if state is not None:
+        model.load_state_dict(state["models"]["s2"])
+        opt.load_state_dict(state["optimizers"]["s2"])
+        with torch.no_grad():
+            for name, f in (lora or {}).items():
+                for k in ("A", "B"):
+                    f[k].copy_(state["lora"][name][k])
+        step, start_epoch = state["step"], state["epoch"]
+    elif pretrained:  # as the JAX package's _overlay_params: what the file lacks keeps its initial value
+        ck = ckpt_io.load_torch_checkpoint(pretrained)
+        _, unexpected = model.load_state_dict({k: v.float() for k, v in ck.get("weight", ck).items()}, strict=False)
+        if unexpected:
+            raise ValueError(f"{pretrained}: unexpected {unexpected}")
+        log("loaded pretrained", pretrained)
+    train_step = make_lora_train_step(model, lora, opt) if lora is not None else make_train_step(model, opt)
+    mlog = MetricsLogger(os.path.join(ckpt_dir, "logs"), echo=False) if rank == 0 else None
+    extra = {"lora_rank": lora_rank} if lora is not None else {}
+    metrics = {}
+    try:
+        for epoch in range(start_epoch, tc.epochs):
+            gen = epoch_generator(tc.seed, epoch, rank)
+            for batch in data_iterator(ds, sampler, epoch):
+                metrics = train_step(batch_to(batch, dev), gen)
+                step += 1
+            metrics = {k: float(v) for k, v in metrics.items()}
+            if rank:
+                continue
+            log(f"epoch {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+            mlog.log(step, **metrics)
+            if (epoch + 1) % save_every == 0:
+                lora_sd = {n: {k: t.detach().clone() for k, t in f.items()} for n, f in (lora or {}).items()}
+                ckpt_io.save_checkpoint({"step": step, "epoch": epoch + 1, "models": {"s2": model.state_dict()},
+                                         "optimizers": {"s2": opt.state_dict()}, "lora": lora_sd or None},
+                                        ckpt_dir, step)
+                sd = model.state_dict() if lora is None else merge_lora(model.state_dict(), lora)
+                ref = ckpt_io.s2_reference_state(sd)
+                info = f"{epoch + 1}epoch"
+                stem = os.path.join(ckpt_dir, f"s2G-{version}-e{epoch + 1}")
+                exports.append(ckpt_io.export_weights(ref, stem + ".npz", config={"version": version, **extra},
+                                                      info=info))
+                exports.append(ckpt_io.save_reference_pth(ref, stem + ".pth", model_version=version,
+                                                          config={"version": version, **extra}, info=info))
+    finally:
+        if mlog is not None:
+            mlog.close()
+    log("train-v3 done")
+    return {"step": step, "epoch": tc.epochs, "resumed_from": state and state["path"], "exports": exports,
+            "metrics": metrics, "models": {"s2": model}, "lora": lora, "reads": dict(ds.reads)}

@@ -66,9 +66,11 @@ _S2_WEIGHT_NORM = re.compile(
 
 
 def s2_reference_state(state_dict: dict) -> dict:
-    """The port's S2 state dict -> the reference checkpoint's tensors: `enc_q.*`
-    dropped (process_ckpt.savee), weight norm split as g = ||w|| over every
-    dim but 0, v = w, computed in float32 numpy as the JAX exporter does."""
+    """The port's S2 or v3/v4 state dict -> the reference checkpoint's
+    tensors: `enc_q.*` dropped (process_ckpt.savee), weight norm split as
+    g = ||w|| over every dim but 0, v = w, computed in float32 numpy as the
+    JAX exporter does (S2: the decoder, the flows' and enc_q's WN stacks;
+    v3/v4: wns1's WN stack, as checkpoint_compat.py `s2v3_params_to_torch`)."""
     out = {}
     for k, v in state_dict.items():
         if k.startswith("enc_q."):

@@ -1,5 +1,7 @@
-"""Datasets and bucketed batching for S1/S2 training (port of
-gpt_sovits_tpu/train/data.py, its Python WAV/NPY path).
+"""Datasets and bucketed batching for S1, S2 and v3/v4 training (port of
+gpt_sovits_tpu/train/data.py). S2Dataset and V3Dataset read a batch's WAV
+and SSL files with the native batch reader (native.py, csrc/gsvt_io.cc)
+where it builds, and with Python otherwise, as the JAX package does.
 
 On-disk layout of a prepared experiment (the reference's logs/{exp}/):
   2-name2text.txt        name\\tphones (space-separated)\\tword2ph\\tnorm_text
@@ -23,10 +25,11 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 
-from gpt_sovits_tpu_torch.dsp.audio_io import load_wav
-from gpt_sovits_tpu_torch.dsp.mel import spectrogram
+from gpt_sovits_tpu_torch import native
+from gpt_sovits_tpu_torch.dsp.audio_io import load_wav, resample
+from gpt_sovits_tpu_torch.dsp.mel import mel_spectrogram, norm_spec, spectrogram
 from gpt_sovits_tpu_torch.text import cleaned_text_to_sequence
-from gpt_sovits_tpu_torch.utils.config import MelConfig
+from gpt_sovits_tpu_torch.utils.config import MEL_V3, MEL_V4, MelConfig
 
 
 def read_name2text(path: str) -> dict[str, list[str]]:
@@ -178,6 +181,7 @@ class S2Dataset:
             self.names.append(name)
             self.phones[name] = np.asarray(cleaned_text_to_sequence(ph, version), np.int32)
             self._frames.append(n_frames)
+        self.reads = {"native": 0, "python": 0}
 
     def __len__(self):
         return len(self.names)
@@ -185,12 +189,34 @@ class S2Dataset:
     def lengths(self) -> list[int]:
         return list(self._frames)
 
+    def _load_batch_files(self, names: list[str]) -> tuple[list, list]:
+        """The batch's waveforms and SSL features: through the native reader
+        when it is built and reads every file, else with Python (JAX
+        data.py:222-233). `reads` counts the batches of each path."""
+        wav_paths = [os.path.join(self.exp_dir, "5-wav32k", n) for n in names]
+        ssl_paths = [os.path.join(self.exp_dir, "4-cnhubert", f"{n}.npy") for n in names]
+        if native.load() is not None:
+            max_len = max(os.path.getsize(p) // 2 for p in wav_paths) + 8  # pcm16 bound
+            res = native.wav_batch(wav_paths, max_len)
+            ssl_cols = np.load(ssl_paths[0], mmap_mode="r").shape[-1]
+            max_rows = max(os.path.getsize(p) for p in ssl_paths) // (2 * ssl_cols) + 4
+            res2 = native.npy_batch(ssl_paths, max_rows, ssl_cols)
+            if res is not None and res2 is not None and not res[3].any() and not res2[2].any():
+                out, lengths, _, _ = res
+                ssl_out, rows, _ = res2
+                self.reads["native"] += 1
+                return ([out[i, : lengths[i]] for i in range(len(names))],
+                        [ssl_out[i, : rows[i]] for i in range(len(names))])
+        self.reads["python"] += 1
+        return ([load_wav(p)[0] for p in wav_paths], [np.load(p).astype(np.float32) for p in ssl_paths])
+
+    def _spec(self, wav: np.ndarray) -> np.ndarray:
+        with torch.no_grad():
+            return spectrogram(torch.from_numpy(np.ascontiguousarray(wav))[None], self.mel_cfg)[0].T.numpy()
+
     def collate(self, idxs: Sequence[int], buckets=(128, 256, 512, 1024, 1600)) -> dict:
         names = [self.names[i] for i in idxs]
-        wavs, ssls = [], []
-        for n in names:
-            wavs.append(load_wav(os.path.join(self.exp_dir, "5-wav32k", n))[0])
-            ssls.append(np.load(os.path.join(self.exp_dir, "4-cnhubert", f"{n}.npy")).astype(np.float32))
+        wavs, ssls = self._load_batch_files(names)
         hop = self.mel_cfg.hop_size
         t_spec = _next_bucket(max(len(w) // hop for w in wavs), buckets)
         t_ssl = t_spec * 2  # 50 Hz SSL against the 25 Hz latent at hop 640
@@ -206,8 +232,7 @@ class S2Dataset:
         for i, (name, wav, ssl) in enumerate(zip(names, wavs, ssls)):
             n_frames = min(len(wav) // hop, t_spec)
             wav = wav[: n_frames * hop]
-            with torch.no_grad():
-                spec = spectrogram(torch.from_numpy(np.ascontiguousarray(wav))[None], self.mel_cfg)[0].T.numpy()
+            spec = self._spec(wav)
             spec_arr[i, : spec.shape[0]] = spec
             wav_arr[i, : len(wav), 0] = wav
             m = min(len(ssl), t_ssl)
@@ -224,6 +249,56 @@ class S2Dataset:
         if len(sv_list) == len(names):
             batch["sv_emb"] = np.stack(sv_list)
         return batch
+
+
+class V3Dataset(S2Dataset):
+    """v3/v4 CFM training data (ref TextAudioSpeakerLoaderV3/V4,
+    data_utils.py:285/:523; JAX data.py:290): the 32 kHz linear spectrogram
+    for the timbre, the normalized target mel from the wav resampled to the
+    version's rate (MEL_V3, 24 kHz/1024/256; MEL_V4, 32 kHz/1280/320), SSL
+    features (t_ssl = 2 * t_spec) and phoneme ids; spec and mel frames each
+    padded to a bucket."""
+
+    def __init__(self, exp_dir: str, *, version: str = "v3", mel_cfg: MelConfig = MelConfig(),
+                 mel_cfg_v: Optional[MelConfig] = None, **kw):
+        super().__init__(exp_dir, version=version, mel_cfg=mel_cfg, **kw)
+        self.mel_cfg_v = mel_cfg_v or (MEL_V4 if version == "v4" else MEL_V3)
+
+    def collate(self, idxs: Sequence[int], buckets=(128, 256, 512, 1024, 1600)) -> dict:
+        names = [self.names[i] for i in idxs]
+        wavs, ssls = self._load_batch_files(names)
+        hop = self.mel_cfg.hop_size
+        mcfg = self.mel_cfg_v
+        sr, sr_mel = self.mel_cfg.sampling_rate, mcfg.sampling_rate
+        t_spec = _next_bucket(max(len(w) // hop for w in wavs), buckets)
+        t_ssl = t_spec * 2
+        t_mel = _next_bucket(max((len(w) * sr_mel // sr) // mcfg.hop_size for w in wavs), buckets)
+        tx = max(len(self.phones[n]) for n in names)
+        b = len(names)
+        spec_arr = np.zeros((b, t_spec, self.mel_cfg.n_fft // 2 + 1), np.float32)
+        mel_arr = np.zeros((b, t_mel, mcfg.num_mels), np.float32)
+        ssl_arr = np.zeros((b, t_ssl, ssls[0].shape[-1]), np.float32)
+        text_arr = np.zeros((b, tx), np.int32)
+        spec_lens, mel_lens, text_lens = (np.zeros((b,), np.int32) for _ in range(3))
+        for i, (name, wav, ssl) in enumerate(zip(names, wavs, ssls)):
+            n_frames = min(len(wav) // hop, t_spec)
+            wav = wav[: n_frames * hop]
+            spec = self._spec(wav)
+            spec_arr[i, : spec.shape[0]] = spec
+            wav_v = resample(np.asarray(wav, np.float32), sr, sr_mel)
+            with torch.no_grad():
+                mel = norm_spec(mel_spectrogram(torch.from_numpy(wav_v)[None], mcfg))[0].T.numpy()  # (Tm, mel)
+            m = min(mel.shape[0], t_mel)
+            mel_arr[i, :m] = mel[:m]
+            mel_lens[i] = m
+            k = min(len(ssl), t_ssl)
+            ssl_arr[i, :k] = ssl[:k]
+            ph = self.phones[name]
+            text_arr[i, : len(ph)] = ph
+            spec_lens[i] = n_frames
+            text_lens[i] = len(ph)
+        return {"ssl": ssl_arr, "spec": spec_arr, "spec_lengths": spec_lens, "mel": mel_arr, "mel_lengths": mel_lens,
+                "text": text_arr, "text_lengths": text_lens}
 
 
 def batch_to(batch: dict, device) -> dict:

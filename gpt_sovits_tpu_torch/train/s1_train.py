@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from gpt_sovits_tpu_torch.models.t2s import T2SDecoder, t2s_loss
+from gpt_sovits_tpu_torch.parallel import sync
 from gpt_sovits_tpu_torch.train.optim import MultiStepOptimizer
 from gpt_sovits_tpu_torch.train.scaled_adam import ScaledAdam
 from gpt_sovits_tpu_torch.utils.config import TrainConfig
@@ -99,9 +100,13 @@ def make_train_step(model: T2SDecoder, optimizer: MultiStepOptimizer, *, use_dpo
     """-> step(batch, generator=None, *, reject=None) -> metrics: one
     micro-step (forward, backward, optimizer.step()). `batch` holds tensors on
     the model's device (data.py `batch_to`); `reject` = (pos, mode) replaces the DPO
-    draw. Metrics are detached tensors: loss, acc, tokens."""
+    draw. Metrics are detached tensors: loss and tokens of the global
+    batch, acc of this rank's. With a process group each rank's DPO term (a
+    batch mean) is scaled by 1/world (the cross-entropy is a sum) and the
+    gradients are summed (parallel/sync.py)."""
 
     def step(batch: dict, generator: Optional[torch.Generator] = None, *, reject=None) -> dict:
+        n = sync.world()
         args = (batch["phoneme_ids"], batch["phoneme_lens"])
         optimizer.zero_grad()
         loss, aux = t2s_loss(model, *args, batch["semantic_ids"], batch["semantic_lens"], batch["bert_features"])
@@ -111,9 +116,10 @@ def make_train_step(model: T2SDecoder, optimizer: MultiStepOptimizer, *, use_dpo
             _, rej_aux = t2s_loss(model, *args, rej_y, rej_lens, batch["bert_features"])
             chosen = (aux["logp"] * aux["mask"]).sum(-1)
             rejected = (rej_aux["logp"] * rej_aux["mask"]).sum(-1)
-            loss = loss + dpo_loss(chosen, rejected)
+            loss = loss + dpo_loss(chosen, rejected) / n
         loss.backward()
+        sync.all_reduce_grads(optimizer.params)
         optimizer.step()
-        return {"loss": loss.detach(), "acc": aux["acc"].detach(), "tokens": aux["tokens"].detach()}
+        return {"loss": sync.all_sum(loss), "acc": aux["acc"].detach(), "tokens": sync.all_sum(aux["tokens"])}
 
     return step

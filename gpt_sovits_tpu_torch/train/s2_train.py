@@ -30,6 +30,7 @@ from gpt_sovits_tpu_torch.models.discriminators import (
     discriminator_loss, feature_loss, generator_loss, kl_loss,
 )
 from gpt_sovits_tpu_torch.models.vits import slice_segments
+from gpt_sovits_tpu_torch.parallel import sync
 from gpt_sovits_tpu_torch.train.optim import MultiStepOptimizer
 from gpt_sovits_tpu_torch.utils.config import MelConfig, TrainConfig
 
@@ -55,11 +56,13 @@ def vq_ema_update(embed, state: VQEmaState, x, codes, *, decay: float = 0.99, ep
     """One EMA-kmeans codebook step (core_vq.py:199-225): EMA of the codes'
     counts and sums, then a Laplace-smoothed mean. x (N, D), codes (N,).
     -> (new embed, new state). Training from scratch applies it after each
-    step; the fine-tune recipe keeps the quantizer frozen and never does."""
+    step; the fine-tune recipe keeps the quantizer frozen and never does.
+    With a process group the counts and sums are the global batch's (summed
+    over the ranks), so every replica keeps the same codebook."""
     k = embed.shape[0]
     onehot = F.one_hot(codes.long(), k).to(x.dtype)
-    cluster_size = state.cluster_size * decay + onehot.sum(0) * (1 - decay)
-    embed_avg = state.embed_avg * decay + (onehot.T @ x) * (1 - decay)
+    cluster_size = state.cluster_size * decay + sync.all_sum(onehot.sum(0)) * (1 - decay)
+    embed_avg = state.embed_avg * decay + sync.all_sum(onehot.T @ x) * (1 - decay)
     n = cluster_size.sum()
     smoothed = (cluster_size + epsilon) / (n + k * epsilon) * n
     return embed_avg / smoothed[:, None], VQEmaState(cluster_size, embed_avg)
@@ -113,11 +116,15 @@ def make_train_step(gen, disc, opt_g: MultiStepOptimizer, opt_d: MultiStepOptimi
     tensors on the models' device (data.py `batch_to`); noise and segment
     starts are drawn from `generator` unless given (SynthesizerTrn.forward).
     The gradients stay in each parameter's `.grad`. Metrics are detached
-    tensors: loss_g, loss_d and loss_adv/fm/mel/kl/commit."""
+    tensors, the global batch's: loss_g, loss_d and loss_adv/fm/mel/kl/commit.
+    With a process group each rank scales its batch means by 1/world and
+    divides the KL by the global mask count, and the gradients are summed
+    (parallel/sync.py)."""
     hop = mel_cfg.hop_size
     seg = gen.cfg.segment_size
 
     def step(batch: dict, generator: Optional[torch.Generator] = None, *, noise=None, ids_slice=None) -> dict:
+        n = sync.world()
         out = gen(batch["ssl"], batch["spec"], batch["spec_lengths"], batch["text"], batch["text_lengths"],
                   sv_emb=batch.get("sv_emb"), noise=noise, ids_slice=ids_slice, generator=generator)
         starts = out["ids_slice"]
@@ -128,8 +135,9 @@ def make_train_step(gen, disc, opt_g: MultiStepOptimizer, opt_d: MultiStepOptimi
         disc.requires_grad_(True)
         opt_d.zero_grad()
         y_d_rs, y_d_gs, _, _ = disc(wav_real, wav_hat.detach())
-        loss_d, _, _ = discriminator_loss(y_d_rs, y_d_gs)
+        loss_d = discriminator_loss(y_d_rs, y_d_gs)[0] / n
         loss_d.backward()
+        sync.all_reduce_grads(opt_d.params)
         opt_d.step()
 
         # ---- G step, against the updated D ----
@@ -137,17 +145,21 @@ def make_train_step(gen, disc, opt_g: MultiStepOptimizer, opt_d: MultiStepOptimi
         mel_real = slice_segments(spec_to_mel(batch["spec"].transpose(1, 2), mel_cfg).transpose(1, 2), starts, seg)
         mel_hat = mel_spectrogram(wav_hat[..., 0], mel_cfg).transpose(1, 2)
         y_d_rs, y_d_gs, fmap_rs, fmap_gs = disc(wav_real, wav_hat)
-        loss_adv, _ = generator_loss(y_d_gs)
-        loss_fm = feature_loss(fmap_rs, fmap_gs)
-        loss_mel = torch.mean(torch.abs(mel_real - mel_hat)) * train_cfg.c_mel
-        loss_kl = kl_loss(out["z_p"], out["logs_q"], out["m_p"], out["logs_p"], out["y_mask"]) * train_cfg.c_kl
-        loss_g = loss_adv + loss_fm + loss_mel + loss_kl + out["commit_loss"]
+        loss_adv = generator_loss(y_d_gs)[0] / n
+        loss_fm = feature_loss(fmap_rs, fmap_gs) / n
+        loss_mel = torch.mean(torch.abs(mel_real - mel_hat)) * train_cfg.c_mel / n
+        mask_total = None if n == 1 else sync.all_sum(out["y_mask"].sum())
+        loss_kl = kl_loss(out["z_p"], out["logs_q"], out["m_p"], out["logs_p"], out["y_mask"],
+                          mask_total) * train_cfg.c_kl
+        loss_commit = out["commit_loss"] / n
+        loss_g = loss_adv + loss_fm + loss_mel + loss_kl + loss_commit
         opt_g.zero_grad()
         loss_g.backward()
+        sync.all_reduce_grads(opt_g.params)
         opt_g.step()
         disc.requires_grad_(True)
         metrics = {"loss_adv": loss_adv, "loss_fm": loss_fm, "loss_mel": loss_mel, "loss_kl": loss_kl,
-                   "loss_commit": out["commit_loss"], "loss_g": loss_g, "loss_d": loss_d}
-        return {k: v.detach() for k, v in metrics.items()}
+                   "loss_commit": loss_commit, "loss_g": loss_g, "loss_d": loss_d}
+        return {k: sync.all_sum(v) for k, v in metrics.items()}
 
     return step

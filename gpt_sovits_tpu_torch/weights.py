@@ -156,6 +156,20 @@ def _generator(dec, pre, cfg, out, *, weight_norm: bool):
     _conv(dec["conv_post"], f"{pre}conv_post", out)
 
 
+def _flow(node, out):
+    for i in range(4):
+        fl = node[f"flow_{i}"]
+        _conv(fl["pre"], f"flow.flows.{i * 2}.pre", out)
+        _wn(fl["enc"], f"flow.flows.{i * 2}.enc", 4, out)
+        _conv(fl["post"], f"flow.flows.{i * 2}.post", out)
+
+
+def _enc_q(node, out):
+    _conv(node["pre"], "enc_q.pre", out)
+    _wn(node["enc"], "enc_q.enc", 16, out)
+    _conv(node["proj"], "enc_q.proj", out)
+
+
 def s2_from_jax(params: dict, cfg) -> dict:
     """SynthesizerTrn (v1/v2/v2Pro/v2ProPlus) under the reference names, the
     posterior encoder `enc_q` included when the tree has it (a model built
@@ -165,19 +179,12 @@ def s2_from_jax(params: dict, cfg) -> dict:
     _enc_p(p["enc_p"], cfg.n_layers, out)
     _generator(p["dec"], "dec.", cfg, out, weight_norm=True)
 
-    for i in range(4):
-        fl = p["flow"][f"flow_{i}"]
-        _conv(fl["pre"], f"flow.flows.{i * 2}.pre", out)
-        _wn(fl["enc"], f"flow.flows.{i * 2}.enc", 4, out)
-        _conv(fl["post"], f"flow.flows.{i * 2}.post", out)
-
+    _flow(p["flow"], out)
     _style_encoder(p["ref_enc"], out)
     _conv(p["ssl_proj"], "ssl_proj", out)
     out["quantizer.vq.layers.0._codebook.embed"] = _t(p["quantizer"]["embed"])
     if "enc_q" in p:
-        _conv(p["enc_q"]["pre"], "enc_q.pre", out)
-        _wn(p["enc_q"]["enc"], "enc_q.enc", 16, out)
-        _conv(p["enc_q"]["proj"], "enc_q.proj", out)
+        _enc_q(p["enc_q"], out)
     if cfg.is_pro:
         _dense(p["sv_emb"], "sv_emb", out)
         _dense(p["ge_to512"], "ge_to512", out)
@@ -205,6 +212,16 @@ def d_from_jax(params: dict, periods=(2, 3, 5, 7, 11)) -> dict:
         for i in range(5):
             _conv2d(node[f"conv_{i}"], f"discriminators.{di}.convs.{i}", out)
         _conv2d(node["conv_post"], f"discriminators.{di}.conv_post", out)
+    return out
+
+
+def bigvgan_d_from_jax(params: dict, periods, resolutions) -> dict:
+    """train/bigvgan_train.py BigVGANDiscriminators: the MPD under `mpd.`
+    and the MRD under `mrd.`, each under the names of d_from_jax /
+    mrd_from_jax."""
+    p = params["params"]
+    out = {f"mpd.{k}": v for k, v in d_from_jax({"params": p["mpd"]}, periods).items()}
+    out.update({f"mrd.{k}": v for k, v in mrd_from_jax({"params": p["mrd"]}, resolutions).items()})
     return out
 
 
@@ -280,6 +297,39 @@ def s2v3_from_jax(params: dict, cfg) -> dict:
     _wn(p["wns1"]["enc"], "wns1.enc", 8, out)
     _conv(p["wns1"]["proj"], "wns1.proj", out)
     _dit(p["cfm"]["estimator"], "cfm.estimator.", cfg.cfm_dit_depth, 4, out)
+    return out
+
+
+def s2v3b_from_jax(params: dict, cfg) -> dict:
+    """models/v3.py SynthesizerTrnV3b: s2v3_from_jax's tensors plus the VITS
+    stack (the decoder, flow and posterior encoder under S2's names, weight
+    norm as there) and `linear_mel`."""
+    p = params["params"]
+    out = s2v3_from_jax(params, cfg)
+    _generator(p["dec"], "dec.", cfg, out, weight_norm=True)
+    _flow(p["flow"], out)
+    _enc_q(p["enc_q"], out)
+    _conv(p["linear_mel"], "linear_mel", out)
+    return out
+
+
+_LORA_TORCH = {"to_q": "attn.to_q", "to_k": "attn.to_k", "to_v": "attn.to_v", "to_out": "attn.to_out.0"}
+
+
+def lora_from_jax(lora: dict) -> dict:
+    """train/s2_train_v3.py `init_lora` deltas -> the port's LoRA factors
+    (train/s2_train_v3.py): {torch weight name: {"A": (r, in), "B": (out, r)}}.
+    The JAX delta a @ b, a (in, r) and b (r, out), adds to a flax kernel
+    (in, out); the torch weight is its transpose, so its delta is
+    (a @ b).T = b.T @ a.T = B @ A."""
+    out = {}
+    for blk, node in lora["cfm"]["estimator"].items():
+        i = int(blk.removeprefix("block_"))
+        for nm, torch_nm in _LORA_TORCH.items():
+            if nm in node:
+                ab = node[nm]["kernel"]
+                out[f"cfm.estimator.transformer_blocks.{i}.{torch_nm}.weight"] = {
+                    "A": _t(np.asarray(ab["a"]).T), "B": _t(np.asarray(ab["b"]).T)}
     return out
 
 

@@ -1,6 +1,6 @@
-"""broken_copies.py on the CPU: each planted fault names a line that occurs
-exactly once in its source (so the copy breaks what it says it breaks), and
-each of its checks is one that the script runs."""
+"""broken_copies.py on the CPU: each planted fault names lines that occur
+exactly once in their sources (so the copy breaks what it says it breaks),
+and each of its checks is one that the script runs."""
 
 import ast
 from pathlib import Path
@@ -14,10 +14,11 @@ ROOT = Path(__file__).resolve().parents[1]
 
 @pytest.mark.parametrize("copy", broken_copies.COPIES, ids=[c[0] for c in broken_copies.COPIES])
 def test_copy_line_occurs_once(copy):
-    name, src, old, new, checks = copy
-    text = (ROOT / src).read_text()
-    assert text.count(old) == 1, f"{name}: {old!r} occurs {text.count(old)} times in {src}"
-    assert old != new
+    name, checks = copy[0], copy[4]
+    for src, old, new in broken_copies.edits(copy):
+        text = (ROOT / src).read_text()
+        assert text.count(old) == 1, f"{name}: {old!r} occurs {text.count(old)} times in {src}"
+        assert old != new
     assert checks and all(c in broken_copies.CHECKS for c in checks)
 
 

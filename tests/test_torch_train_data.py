@@ -4,7 +4,7 @@ sampler's batches, the S1/S2 collates on a written corpus (with and without
 `7-sv_cn`), reference-format exports equal to the JAX exporters' and read
 by the JAX reader, resumption equal to an uninterrupted run, the drivers end
 to end with `device="cpu"` and a pretrained reload, and `device=None`
-refusing to run without a card."""
+refusing to run without a card (data-parallel or not)."""
 
 import dataclasses
 import json
@@ -26,7 +26,8 @@ from gpt_sovits_tpu_torch import weights
 from gpt_sovits_tpu_torch.models.discriminators import MultiPeriodDiscriminator, periods_for
 from gpt_sovits_tpu_torch.models.t2s import T2SDecoder
 from gpt_sovits_tpu_torch.models.vits import SynthesizerTrn
-from gpt_sovits_tpu_torch.run import DP_SLICE, run_train_s1, run_train_s2
+from gpt_sovits_tpu_torch.parallel import sync
+from gpt_sovits_tpu_torch.run import run_train_s1, run_train_s2
 from gpt_sovits_tpu_torch.train import ckpt as ckpt_io
 from gpt_sovits_tpu_torch.train import data as pdata
 from gpt_sovits_tpu_torch.utils import config as pconfig
@@ -258,15 +259,24 @@ def test_drivers_end_to_end_with_pretrained(corpus_small, tmp_path):
 
 
 def test_device_none_needs_a_card_and_no_data_parallel(corpus, tmp_path, monkeypatch):
+    """device=None needs a card; data_parallel=True without a process group
+    of more than one is no data parallelism, and a card is still needed;
+    with one (here a stand-in world of 2) a batch it does not divide is
+    refused before anything is written (tests/test_torch_parallel.py runs
+    real groups)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_train_s1(corpus, str(tmp_path / "c"), model_cfg=s1_cfg(), **QUIET)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_train_s2(corpus, str(tmp_path / "c"), model_cfg=s2_cfg(), **QUIET)
     for fn in (run_train_s1, run_train_s2):
-        with pytest.raises(NotImplementedError, match="slice 6b"):
-            fn(corpus, str(tmp_path / "c"), data_parallel=True, device="cpu", **QUIET)
-    assert "slice 6b" in DP_SLICE and not (tmp_path / "c").exists()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(corpus, str(tmp_path / "c"), data_parallel=True, **QUIET)
+    monkeypatch.setattr(sync, "world", lambda: 2)
+    for fn in (run_train_s1, run_train_s2):
+        with pytest.raises(ValueError, match="not divisible by 2"):
+            fn(corpus, str(tmp_path / "c"), batch_size=3, data_parallel=True, device="cpu", **QUIET)
+    assert not (tmp_path / "c").exists()
 
 
 def test_training_models_hold_float32_and_refuse_else(corpus, tmp_path):

@@ -188,3 +188,67 @@ def test_vocoder_v4_names_read_by_the_jax_loader(tmp_path):
     for p, v in flat:
         np.testing.assert_array_equal(np.asarray(back_flat[p]), v, err_msg=str(p))
     Generator(full, in_channels=100, use_post_bias=True, conditioned=False).load_state_dict(sd, strict=True)
+
+
+V3B = dict(S2, version="v3", cfm_mel_channels=12, cfm_dit_depth=2, cfm_dit_dim=32, cfm_dit_heads=2)
+
+
+def test_s2v3b_from_jax_equals_the_reference_exporters():
+    """SynthesizerTrnV3b: the v3 tensors as s2v3_params_to_torch emits them,
+    the VITS stack's (dec, flow, enc_q) as s2_params_to_torch does, and
+    linear_mel; the port's module loads them strictly."""
+    from gpt_sovits_tpu.models.v3 import SynthesizerTrnV3b as JV3b
+    from gpt_sovits_tpu_torch.models.v3 import SynthesizerTrnV3b
+
+    cfg = jconfig.S2Config(**V3B)
+    z = jnp.zeros
+    params = _shapes(JV3b(cfg), z((1, 16, cfg.ssl_dim)), z((1, 16, cfg.spec_channels)), jnp.asarray([16]),
+                     z((1, 30, 12)), jnp.asarray([30]), z((1, 5), jnp.int32), jnp.asarray([5]), method=JV3b.init_all)
+    sd = weights.s2v3b_from_jax(params, cfg)
+    want = {**s2_params_to_torch(params, cfg), **s2v3_params_to_torch(params, cfg)}
+    want["linear_mel.weight"] = torch.from_numpy(np.asarray(params["params"]["linear_mel"]["Conv_0"]["kernel"]).T.copy())
+    want["linear_mel.bias"] = torch.from_numpy(np.asarray(params["params"]["linear_mel"]["Conv_0"]["bias"]))
+    _assert_same(sd, want)
+    missing, unexpected = SynthesizerTrnV3b(pconfig.S2Config(**V3B)).load_state_dict(sd, strict=True)
+    assert not missing and not unexpected
+
+
+def test_lora_from_jax_delta_is_the_transpose():
+    """JAX adds a @ b to a flax kernel (in, out); the torch weight is its
+    transpose, so the port's B @ A must equal (a @ b).T. Held on merged
+    weights, which a transposed delta would change even where W is square."""
+    from gpt_sovits_tpu.train.s2_train_v3 import init_lora, merge_lora
+    from gpt_sovits_tpu_torch.train.s2_train_v3 import lora_targets
+    from gpt_sovits_tpu_torch.train.s2_train_v3 import merge_lora as p_merge
+
+    cfg = jconfig.S2Config(**dict(V3B, version="v4"))
+    z = jnp.zeros
+    params = _shapes(JV3(cfg), z((1, 16, cfg.ssl_dim)), z((1, 16, cfg.spec_channels)), jnp.asarray([16]),
+                     z((1, 30, 12)), jnp.asarray([30]), z((1, 5), jnp.int32), jnp.asarray([5]), method=JV3.init_all)
+    lora = jax.tree.map(np.asarray, init_lora(params, 3, jax.random.PRNGKey(1)))
+    rng = np.random.default_rng(2)
+    lora = jax.tree.map(lambda x: rng.standard_normal(x.shape).astype(np.float32), lora)  # b != 0
+    plora = weights.lora_from_jax(lora)
+    model = SynthesizerTrnV3(pconfig.S2Config(**dict(V3B, version="v4")))
+    model.load_state_dict(weights.s2v3_from_jax(params, cfg), strict=True)
+    assert sorted(plora) == sorted(lora_targets(model)) and len(plora) == 8
+    for f in plora.values():
+        assert f["A"].shape[0] == 3 and f["B"].shape[1] == 3
+    merged = p_merge(model.state_dict(), plora)
+    want = weights.s2v3_from_jax(jax.tree.map(np.asarray, merge_lora(params, lora)), cfg)
+    for name in plora:
+        torch.testing.assert_close(merged[name], want[name], rtol=1e-5, atol=1e-5, msg=name)
+
+
+def test_bigvgan_d_from_jax_names_load_strictly():
+    from gpt_sovits_tpu.train.bigvgan_train import BigVGANDiscriminators as JD
+    from gpt_sovits_tpu_torch.train.bigvgan_train import BigVGANDiscriminators
+
+    periods, res = (2, 3), ((128, 32, 64),)
+    y = jnp.zeros((1, 512, 1))
+    params = _shapes(JD(periods=periods, resolutions=res), y, y)
+    sd = weights.bigvgan_d_from_jax(params, periods, res)
+    mpd = weights.d_from_jax({"params": params["params"]["mpd"]}, periods)
+    mrd = weights.mrd_from_jax({"params": params["params"]["mrd"]}, res)
+    assert sd.keys() == {f"mpd.{k}" for k in mpd} | {f"mrd.{k}" for k in mrd}
+    BigVGANDiscriminators(periods, res).load_state_dict(sd, strict=True)
