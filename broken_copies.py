@@ -3,10 +3,11 @@ step in `csrc/decode_step.cu`, K6 `csrc/snake_aa.cu` and its plan in
 `ops/snake_aa.py`, K3, K4's path and the s8 GEMM of K2/K3/K4 in
 `csrc/qmatmul.cu` and its plan in `ops/qmatmul.py`, K5 `csrc/qflash.cu`),
 in the continuous-batching pool that drives K1 (`infer/continuous.py`), in
-the pipeline's zh BERT features (`infer/pipeline.py`) or in the training
+the pipeline's zh BERT features (`infer/pipeline.py`), in the training
 BigVGAN's activations (`models/bigvgan.py` with K6's gradient refusal
-removed), each of which must fail chip_smoke.py's check of that kernel or
-path on the card.
+removed), in the reference-checkpoint loaders (`utils/loaders.py`) or in
+the reference-format export (`train/ckpt.py`), each of which must fail
+chip_smoke.py's check of that kernel or path on the card.
 
     python3 broken_copies.py        # one CUDA card; exits non-zero if a copy passes its check
 
@@ -15,7 +16,7 @@ directory outside the checkout, with one line of one source replaced (or,
 where a fault needs it, one line in each of several sources); its checks
 (chip_smoke.k1_case, k1_rows_case, snake_case, k3_case, k4_case, k5_case
 or gemm_case at a main-path shape, k1_sweep_case, serve_case,
-path_zh_case, train_bigvgan_case) run in a child process there, which
+path_zh_case, train_bigvgan_case, cli_case) run in a child process there, which
 builds the copy's kernels. The same checks run first on the unbroken
 sources and must pass. One JSON line per copy and check: the check's
 outcome and the end of its assertion message.
@@ -41,6 +42,8 @@ DS_PY = "gpt_sovits_tpu_torch/ops/decode_step.py"
 POOL = "gpt_sovits_tpu_torch/infer/continuous.py"
 PIPE = "gpt_sovits_tpu_torch/infer/pipeline.py"
 BIGVGAN = "gpt_sovits_tpu_torch/models/bigvgan.py"
+LOADERS = "gpt_sovits_tpu_torch/utils/loaders.py"
+CKPT = "gpt_sovits_tpu_torch/train/ckpt.py"
 CHECKS = {
     # K1's whole step at full width, random and peaked inputs (step_cases)
     "k1_int8": "c.k1_case('int8', 1, g)",
@@ -75,6 +78,9 @@ CHECKS = {
     # BigVGAN GAN training at full width on the plain snake composition: train_bigvgan (K1-K7
     # launched 0 times, every gradient card vs CPU)
     "train_bigvgan": "c.train_bigvgan_case(g)",
+    # the loaders on reference-format files from the seed: cli (every loaded tensor equals the file's weights
+    # after the container's fp16 rounding; weight-norm pairs folded as torch folds them)
+    "cli": "c.cli_case(g)",
 }
 # (name, source, the line as it is, the broken line, checks that must fail); a fault
 # that needs lines in several sources gives a tuple of each
@@ -146,6 +152,12 @@ COPIES = [
     ("training BigVGAN: its activations through K6, the gradient refusal removed", (BIGVGAN, SNAKE_PY),
      ("        fn = snake_aa if self.use_kernel else snake_aa_plain", '    refuse_grad("snake_aa", x, alpha, beta)'),
      ("        fn = snake_aa", "    pass"), ("train_bigvgan",)),
+    ("loaders: HuBERT's pos_conv folded over dim 0 (HF's weight_norm is over dim 2)", LOADERS,
+     "    model.load_state_dict(_floats(fold_weight_norm(sd, dim=2)))",
+     "    model.load_state_dict(_floats(fold_weight_norm(sd, dim=0)))", ("cli",)),
+    ("exports: the reference container's fp16 rounding skipped (the files hold float32)", CKPT,
+     '    opt = {"weight": {k: v.detach().cpu().half() for k, v in state_dict.items()}, "config": config or {},',
+     '    opt = {"weight": {k: v.detach().cpu() for k, v in state_dict.items()}, "config": config or {},', ("cli",)),
 ]
 
 

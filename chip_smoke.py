@@ -38,7 +38,17 @@ lengths, one K1 launch a pool step, more than one live row, greedy
 agreement >= 0.9 with `generate` and with a B=1 K1 decode by the pool's
 rule, a seeded request's tokens alone as among co-tenants), http (the
 api_v2 server over the service: 4 concurrent POST /tts, a streamed GET, a zh
-and an auto POST answering 200, a made-up language 400); then for v4: kernels (K2, K3,
+and an auto POST answering 200, a made-up language 400), cli (full-width
+v2ProPlus model files written from --seed in the reference's containers and
+key layouts: an S1 .ckpt, an S2 .pth with the `06` header and weight_g/
+weight_v pairs, HF chinese-hubert-base and chinese-roberta directories, an
+ERes2NetV2 .ckpt; each loader's tensors equal to the files' weights after
+the fp16 rounding; `python -m gpt_sovits_tpu_torch.cli tts` in this process
+on a zh sentence: an int16 WAV of its S1 tokens' length, one K1 launch an
+S1 step, greedy tokens >= 0.9 equal to an in-memory pipeline's on the same
+weights; `prepare` of a zh/en manifest on the card and with --device cpu,
+file for file; `serve --continuous` as a child process answering POST
+/tts); then for v4: kernels (K2, K3,
 K5 at dim 1024, 16 x 64 heads, ff 2048, T=1024 with 1000 real frames, B in
 {1, 4}, on inputs where a mask or rotary fault shows; K3 also with a q scale
 and at T = 1000, K5 at T = 1000 and 2048; device time split into the GEMM or
@@ -2058,6 +2068,319 @@ def serve_case(g: torch.Generator) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase: cli (reference-format files, the loaders, tts, prepare, serve)
+# ---------------------------------------------------------------------------
+
+CLI_FOLD_RTOL = 1e-6  # a folded weight-norm pair against torch._weight_norm on the same (g, v): other op orders
+PREPARE_BAR = 1e-3  # relative L2 of a prepared feature file, card vs CPU (f32 both, TF32 off, stored as float16)
+SEMANTIC_BAR = 0.99  # share of equal semantic codes, card vs CPU
+CLI_TEXT = BERT_SENTENCE  # one zh sentence: two cut5 pieces
+PREPARE_LINES = [("ZH", ZH_REF_TEXT), ("EN", REQUESTS[0]), ("ZH", "我们一起去看看吧，不要不要，一个一个来。"), ("EN", REQUESTS[2])]
+PREPARE_DURATIONS = (2.0, 2.4, 2.8, 3.2)
+
+
+def _folded_expect(sd: dict, dim: int) -> tuple[dict, set]:
+    """`sd` with each `weight_g`/`weight_v` pair replaced by the weight
+    torch's own weight norm computes from it; -> (that dict, the folded
+    names)."""
+    out, folded = {}, set()
+    for k, v in sd.items():
+        if k.endswith(".weight_v"):
+            continue
+        if k.endswith(".weight_g"):
+            p = k[: -len("weight_g")]
+            out[p + "weight"] = torch._weight_norm(sd[p + "weight_v"], v, dim)
+            folded.add(p + "weight")
+        else:
+            out[k] = v
+    return out, folded
+
+
+def write_reference_files(d: Path, seed: int) -> dict:
+    """From the seed, full-width v2ProPlus model files in the reference's
+    containers and key layouts: an S1 `.ckpt` ({weight, config, info},
+    fp16), an S2 `.pth` with the `06` header and weight_g/weight_v pairs
+    (train/ckpt.py save_reference_pth on s2_reference_state), an HF
+    chinese-hubert-base directory (pos_conv as weight_g/weight_v over dim 2,
+    masked_spec_embed), a chinese-roberta-wwm-ext-large directory (`bert.`
+    names, pooler and cls.* heads, position_ids, vocab.txt of bert_vocab())
+    and an ERes2NetV2 `.ckpt` (num_batches_tracked, the embedding layer
+    after fuse34). -> {"paths", "expect": the state dict each loader must
+    give (the seeded weights after the container's rounding), "folded": the
+    names held within CLI_FOLD_RTOL}."""
+    from gpt_sovits_tpu_torch.models.bert import BertConfig, BertEncoder
+    from gpt_sovits_tpu_torch.train.ckpt import s2_reference_state, save_reference_pth
+
+    d.mkdir(parents=True, exist_ok=True)
+    torch.manual_seed(seed)
+    g = torch.Generator().manual_seed(seed)
+    paths, expect, folded = {}, {}, {}
+    s1 = T2SDecoder(S1Config()).state_dict()
+    paths["s1"] = save_reference_pth(s1, str(d / "s1-e15.ckpt"), config={"model": {"t2s": "seeded"}}, info="15epoch")
+    expect["s1"], folded["s1"] = {k: v.half().float() for k, v in s1.items()}, set()
+    ref = s2_reference_state(SynthesizerTrn(s2_config_for_version("v2ProPlus")).state_dict())
+    paths["s2"] = save_reference_pth(ref, str(d / "s2G-e8.pth"), model_version="v2ProPlus", info="8epoch")
+    expect["s2"], folded["s2"] = _folded_expect({k: v.half().float() for k, v in ref.items()}, 0)
+    hub = HubertEncoder().state_dict()
+    pos = "encoder.pos_conv_embed.conv."
+    w = hub.pop(pos + "weight")
+    v = w * (0.5 + torch.rand(1, 1, w.shape[2], generator=g))  # a factor along the kernel axis, kept by the norm
+    hub_file = {**hub, pos + "weight_g": torch.sqrt((w**2).sum(dim=(0, 1), keepdim=True)), pos + "weight_v": v,
+                "masked_spec_embed": torch.rand(w.shape[0], generator=g)}
+    (d / "chinese-hubert-base").mkdir()
+    torch.save(hub_file, d / "chinese-hubert-base" / "pytorch_model.bin")
+    paths["hubert"] = str(d / "chinese-hubert-base")
+    expect["hubert"], folded["hubert"] = _folded_expect({k: v for k, v in hub_file.items() if k != "masked_spec_embed"}, 2)
+    bert = BertEncoder(BertConfig()).state_dict()
+    h = BertConfig().hidden_size
+    bert_file = {"bert." + k: v for k, v in bert.items()}
+    bert_file.update({"bert.embeddings.position_ids": torch.arange(512)[None],
+                      "bert.pooler.dense.weight": torch.randn(h, h, generator=g), "bert.pooler.dense.bias": torch.zeros(h),
+                      "cls.predictions.bias": torch.zeros(BERT_VOCAB),
+                      "cls.predictions.transform.dense.weight": torch.randn(h, h, generator=g)})
+    (d / "chinese-roberta-wwm-ext-large").mkdir()
+    torch.save(bert_file, d / "chinese-roberta-wwm-ext-large" / "pytorch_model.bin")
+    (d / "chinese-roberta-wwm-ext-large" / "vocab.txt").write_text("\n".join(bert_vocab()) + "\n", encoding="utf-8")
+    paths["bert"] = str(d / "chinese-roberta-wwm-ext-large")
+    expect["bert"], folded["bert"] = bert, set()
+    del bert_file
+    sv = ERes2NetV2().state_dict()
+    sv_file = dict(sv, **{k[: -len("running_var")] + "num_batches_tracked": torch.tensor(1000)
+                          for k in sv if k.endswith(".running_var")})
+    sv_file.update({"seg_1.weight": torch.randn(192, 20480, generator=g), "seg_1.bias": torch.zeros(192)})
+    torch.save(sv_file, d / "pretrained_eres2netv2w24s4ep4.ckpt")
+    paths["sv"] = str(d / "pretrained_eres2netv2w24s4ep4.ckpt")
+    expect["sv"], folded["sv"] = sv, set()
+    return {"paths": paths, "expect": expect, "folded": folded}
+
+
+def load_reference_files(files: dict) -> tuple[dict, dict]:
+    """Each loader of utils/loaders.py on its file -> (modules, seconds)."""
+    from gpt_sovits_tpu_torch.utils import loaders
+
+    p, mods, secs = files["paths"], {}, {}
+    for name, fn in (("s1", lambda: loaders.load_s1(p["s1"])), ("s2", lambda: loaders.load_s2(p["s2"])),
+                     ("hubert", lambda: loaders.load_hubert(p["hubert"])), ("bert", lambda: loaders.load_bert(p["bert"])),
+                     ("sv", lambda: loaders.load_sv(p["sv"]))):
+        t0 = time.perf_counter()
+        mods[name] = fn()
+        secs[name] = time.perf_counter() - t0
+    model, version = mods["s2"]
+    assert version == "v2ProPlus", version  # sniffed from the `06` header
+    mods["s2"], mods["bert"] = model, mods["bert"][0]
+    return mods, secs
+
+
+def check_modules(mods: dict, files: dict) -> dict:
+    """Each module's tensors equal, bit for bit, what its file holds after
+    the container's rounding (weight-norm pairs folded: within
+    CLI_FOLD_RTOL of torch._weight_norm) -> the tensors checked a module."""
+    out = {}
+    for name, module in mods.items():
+        got = {k: v.detach().cpu() for k, v in module.state_dict().items()}
+        want, folded = files["expect"][name], files["folded"][name]
+        assert got.keys() == want.keys(), (name, sorted(set(got) ^ set(want))[:8])
+        for k, w in want.items():
+            if k in folded:
+                err = rel_l2(got[k], w)
+                assert err < CLI_FOLD_RTOL, (name, k, err)
+            else:
+                assert got[k].dtype == w.dtype and torch.equal(got[k], w), (name, k)
+        out[name] = len(want)
+    return out
+
+
+def cli_case(g: torch.Generator) -> dict:
+    """The loaders on their own (the broken copies' check): the files of
+    write_reference_files from seed 0 loaded and checked by check_modules."""
+    with tempfile.TemporaryDirectory(prefix="gsv_smoke_cli_") as tmp:
+        files = write_reference_files(Path(tmp), 0)
+        mods, secs = load_reference_files(files)
+        return {"tensors": check_modules(mods, files), "loader_s": secs}
+
+
+class recorded_tokens:
+    """Within the block, the token rows of every `generate` call of
+    infer/pipeline.py, in call order."""
+
+    def __enter__(self):
+        from gpt_sovits_tpu_torch.infer import pipeline as mod
+
+        self.mod, self.saved, self.seqs = mod, mod.generate, []
+
+        def gen(*args, **kw):
+            out = self.saved(*args, **kw)
+            self.seqs += [out.tokens[i, : int(out.lengths[i])].cpu().numpy() for i in range(out.tokens.shape[0])]
+            return out
+
+        mod.generate = gen
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.generate = self.saved
+
+
+def _wav_pcm16(path: Path) -> tuple[int, np.ndarray]:
+    data = path.read_bytes()
+    assert data[:4] == b"RIFF" and data[8:16] == b"WAVEfmt " and data[36:40] == b"data", data[:44]
+    fmt, ch, sr, _, _, bits = struct.unpack("<HHIIHH", data[20:36])
+    assert (fmt, ch, bits) == (1, 1, 16), (fmt, ch, bits)
+    return sr, np.frombuffer(data[44:], "<i2")
+
+
+def memory_pipeline(files: dict) -> TTSPipeline:
+    """The v2ProPlus pipeline built in memory on the weights the files hold
+    (check_modules' expectations), not through the loaders."""
+    from gpt_sovits_tpu_torch.models.bert import BertEncoder
+    from gpt_sovits_tpu_torch.text.bert_tokenizer import BertTokenizer
+
+    mods = {"s1": T2SDecoder(S1Config()), "s2": SynthesizerTrn(s2_config_for_version("v2ProPlus")),
+            "hubert": HubertEncoder(), "bert": BertEncoder(), "sv": ERes2NetV2()}
+    for name, m in mods.items():
+        m.load_state_dict(files["expect"][name])
+    return TTSPipeline(s1_model=mods["s1"], s2_model=mods["s2"], hubert_model=mods["hubert"], sv_model=mods["sv"],
+                       bert_model=mods["bert"], bert_tokenizer=BertTokenizer(bert_vocab()))
+
+
+def _compare_prepared(card: Path, cpu: Path, names: list) -> dict:
+    """The card's experiment against the CPU's: 2-name2text.txt identical,
+    the 32 kHz wavs identical, 3-bert / 4-cnhubert / 7-sv_cn within
+    PREPARE_BAR, the semantic codes equal at SEMANTIC_BAR."""
+    assert (card / "2-name2text.txt").read_text(encoding="utf-8") == (cpu / "2-name2text.txt").read_text(encoding="utf-8")
+    assert len((card / "2-name2text.txt").read_text(encoding="utf-8").splitlines()) == len(names)
+    errs = {}
+    for sub in ("3-bert", "4-cnhubert", "7-sv_cn"):
+        files = sorted(p.name for p in (card / sub).iterdir())
+        assert files == sorted(p.name for p in (cpu / sub).iterdir()) and files, (sub, files)
+        worst = 0.0
+        for f in files:
+            a, b = np.load(card / sub / f), np.load(cpu / sub / f)
+            assert a.dtype == b.dtype == np.float16 and a.shape == b.shape and np.isfinite(a).all(), (sub, f)
+            worst = max(worst, rel_l2(torch.from_numpy(a.astype(np.float32)), torch.from_numpy(b.astype(np.float32))))
+        assert worst < PREPARE_BAR, (sub, worst)
+        errs[sub] = worst
+    for n in names:
+        assert (card / "5-wav32k" / n).read_bytes() == (cpu / "5-wav32k" / n).read_bytes(), n
+    rows = [(card / "6-name2semantic.tsv").read_text().splitlines(), (cpu / "6-name2semantic.tsv").read_text().splitlines()]
+    codes = [np.concatenate([np.asarray(r.split("\t")[1].split(), int) for r in rr]) for rr in rows]
+    assert [r.split("\t")[0] for r in rows[0]] == [r.split("\t")[0] for r in rows[1]] == names
+    assert codes[0].shape == codes[1].shape, (codes[0].shape, codes[1].shape)
+    errs["semantic_agreement"] = float((codes[0] == codes[1]).mean())
+    assert errs["semantic_agreement"] >= SEMANTIC_BAR, errs
+    errs["bert_files"] = len(list((card / "3-bert").iterdir()))
+    return errs
+
+
+def _serve_subprocess(model_argv: list, ref: str, seed: int) -> dict:
+    """`python -m gpt_sovits_tpu_torch.cli serve --continuous` on a free
+    port as a child process: one POST /tts answers 200 with a RIFF body;
+    the child is killed by its PID."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "gpt_sovits_tpu_torch.cli", "serve", "--continuous", "--port",
+                             str(port), *model_argv, "--device", "cuda"], cwd=Path(__file__).resolve().parent,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines: list = []
+    reader = threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True)
+    try:
+        reader.start()
+        while not any("serving on" in ln for ln in lines):
+            assert proc.poll() is None, "".join(lines)[-3000:]
+            assert time.perf_counter() - t0 < 300, "serve did not start in 300 s"
+            time.sleep(0.2)
+        ready = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        code, body = _http("POST", f"http://127.0.0.1:{port}/tts", {"text": REQUESTS[0], "text_lang": "en",
+                                                                     "ref_audio_path": ref, "seed": seed})
+        assert code == 200 and _riff_ok(body), (code, body[:200])
+        return {"ready_s": ready, "request_s": time.perf_counter() - t1, "audio_s": (len(body) - 44) / 2 / 32000}
+    finally:
+        proc.kill()
+        proc.wait(timeout=60)
+
+
+def cli_phase(seed: int) -> dict:
+    """The command line on reference-format files (write_reference_files):
+    the loaders' tensors checked; `tts` in this process on a zh text (an
+    int16 WAV of its S1 tokens' length, one K1 launch an S1 step, the
+    loaded pipeline's modules checked, greedy tokens against an in-memory
+    pipeline on the same weights); `prepare` of a zh/en manifest on the
+    card and with --device cpu, compared file for file; `serve --continuous`
+    as a child process answering POST /tts."""
+    from gpt_sovits_tpu_torch import cli
+    from gpt_sovits_tpu_torch.serve.api import wav_bytes
+
+    rec: dict = {}
+    with tempfile.TemporaryDirectory(prefix="gsv_smoke_cli_") as tmp:
+        d = Path(tmp)
+        t0 = time.perf_counter()
+        files = write_reference_files(d / "models", seed)
+        rec["write_s"] = time.perf_counter() - t0
+        mods, rec["loader_s"] = load_reference_files(files)
+        rec["tensors"] = check_modules(mods, files)
+        del mods
+        p = files["paths"]
+        model_argv = ["--s1", p["s1"], "--s2", p["s2"], "--hubert", p["hubert"], "--bert", p["bert"], "--sv", p["sv"]]
+        ref = d / "ref.wav"
+        ref.write_bytes(wav_bytes((reference_wav(seed) * 32767).astype(np.int16), 32000))
+        out = d / "tts.wav"
+        t0 = time.perf_counter()
+        reset_all_launch_counts()
+        with counted_steps() as steps:
+            res = cli.main(["tts", "--text", CLI_TEXT, "--lang", "zh", "--ref-audio", str(ref), "--ref-text", ZH_REF_TEXT,
+                            "--ref-lang", "zh", "--output", str(out), "--seed", str(seed), *model_argv,
+                            "--device", "cuda"])
+        launches = all_launch_counts()  # counted from 0 just before the tts command
+        rec["tts_command_s"] = time.perf_counter() - t0
+        launches.update(check_s1_launches(launches, steps.n))
+        assert all(v == 0 for k, v in launches.items() if k not in ("fused_decode_step", "s1_steps")), launches
+        pipe = res["pipeline"]
+        sr, samples = _wav_pcm16(out)
+        hop_up = int(np.prod(pipe.s2.cfg.upsample_rates))
+        n_seg = len(pipe.last_tokens)
+        expect = sum(n * 2 * hop_up for n in pipe.last_tokens.values()) + (n_seg - 1) * int(sr * pipe.cfg.fragment_interval)
+        assert sr == res["sr"] == 32000 and samples.shape == (expect,), (sr, samples.shape, expect)
+        assert np.array_equal(samples, res["audio"]) and np.isfinite(samples.astype(np.float32)).all()
+        rec["tts"] = {"segments": n_seg, "tokens": list(pipe.last_tokens.values()), "audio_s": len(samples) / sr,
+                      "wall_s": res["wall_s"], "rtf": res["wall_s"] / (len(samples) / sr), "phases_s": pipe.last_timing}
+        rec["launches"] = launches
+        check_modules({"s1": pipe.s1, "s2": pipe.s2, "hubert": pipe.hubert, "bert": pipe.bert, "sv": pipe.sv}, files)
+        greedy = []
+        for p_ in (pipe, memory_pipeline(files)):
+            p_.set_ref_audio(str(ref), ref_text=ZH_REF_TEXT, ref_lang="zh")
+            with recorded_tokens() as rt:
+                p_.run(CLI_TEXT, "zh", seed=seed, top_k=1, max_sec=MAX_SEC)
+            greedy.append(np.concatenate(rt.seqs))
+        rec["greedy_agreement"] = agreement(*greedy)
+        assert rec["greedy_agreement"] >= 0.9, rec["greedy_agreement"]
+        del pipe, res, greedy
+        torch.cuda.empty_cache()
+
+        corpus = d / "corpus"
+        names = write_corpus(corpus, PREPARE_DURATIONS, seed=seed, sv=False)
+        manifest = d / "corpus.list"
+        manifest.write_text("".join(f"{corpus / '5-wav32k' / n}|spk|{lang}|{text}\n"
+                                    for n, (lang, text) in zip(names, PREPARE_LINES)), encoding="utf-8")
+        rec["prepare_s_per_utt"] = {}
+        for dev in ("cuda", "cpu"):
+            reset_all_launch_counts()
+            t0 = time.perf_counter()
+            cli.main(["prepare", "--list", str(manifest), "--exp-dir", str(d / f"exp_{dev}"), "--version", "v2ProPlus",
+                      "--bert", p["bert"], "--hubert", p["hubert"], "--s2", p["s2"], "--sv", p["sv"], "--device", dev])
+            torch.cuda.synchronize()
+            rec["prepare_s_per_utt"][dev] = (time.perf_counter() - t0) / len(names)
+            assert not any(all_launch_counts().values()), all_launch_counts()  # no kernel on the prepare path
+            torch.cuda.empty_cache()
+        rec["prepare"] = _compare_prepared(d / "exp_cuda", d / "exp_cpu", names)
+        rec["serve"] = _serve_subprocess(model_argv, str(ref), seed)
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # phases: train_s2, train_s1 (the fine-tune recipe: S2, then S1)
 # ---------------------------------------------------------------------------
 
@@ -2863,6 +3186,10 @@ def main(argv=None) -> int:
 
     del pipe, svc
     torch.cuda.empty_cache()
+    # the command line on reference-format files: the loaders, tts (K1 counted from 0 just before it), prepare, serve
+    cli_rec = cli_phase(args.seed)
+    emit({"phase": "cli", **cli_rec})
+    torch.cuda.empty_cache()
 
     # v4: the int8 DiT kernels at v4 shapes, then the full-width v4 path
     v4_rows = {}
@@ -2933,11 +3260,12 @@ def main(argv=None) -> int:
         "name": name, "route": "cuda", "source": KERNEL_SRC, "replaces": REPLACES,
         "launches": launches[name], "launches_zh": launches_zh[name], "launches_v4": launches4[name],
         "launches_v3": launches3[name], "launches_serve": serve_rec["launches"],
+        "launches_cli": cli_rec["launches"][name],
         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"], "timer": r["timer"],
         "config": "int8 weights + int8 KV, B=1, live 745 of 1024, one launch a 24-layer step; launches over the "
-                  "v2 (launches), zh, v4 and v3 paths, and over serve_v2's waves (the 8-slot pool, one launch a pool "
-                  "step)",
+                  "v2 (launches), zh, v4 and v3 paths, over serve_v2's waves (the 8-slot pool, one launch a pool "
+                  "step) and over the cli phase's tts command",
     }]
     helpers = {"qdense_int8": "row_quant", "qkv_rope_int8": "row_quant", "flash_attn_int8": "v_quant"}
     for name in ("qdense_int8", "qkv_rope_int8", "flash_attn_int8"):

@@ -1,4 +1,4 @@
-"""v3/v4 synthesizer for inference: semantic codes -> CFM flow-matching mel
+"""v3/v4 synthesizer: semantic codes -> CFM flow-matching mel
 (port of gpt_sovits_tpu/models/v3.py; reference `SynthesizerTrnV3` and `CFM`,
 module/models.py:1013-1275).
 
@@ -8,8 +8,9 @@ interpolation x1.875 (v3) or x2 (v4), the WN encoder `wns1` and the CFM's
 DiT estimator. `cfm_inference` is the Euler sampler with the text
 conditioner computed once (step 0). Public tensors are feature-last as in
 the JAX package; parameter names are the reference's, with weight norm
-folded at load. The training forward and `SynthesizerTrnV3b` are not ported
-yet (ROADMAP.md, training slice).
+folded at load. `SynthesizerTrnV3.forward` is the training loss (through
+`CFM.loss`), and `SynthesizerTrnV3b` (with `decode_encp`) has no driver, as
+in the JAX package.
 """
 
 from __future__ import annotations

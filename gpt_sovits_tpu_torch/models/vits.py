@@ -5,7 +5,8 @@ Public methods keep the JAX package's feature-last layout: SSL features
 (B, T, 768), reference spectrogram (B, T, bins), latents (B, T, C), ge
 (B, 1, gin), waveform (B, T_wav, 1). Inside, modules run channels-first.
 Parameter names are the reference's (module/models.py); weight-norm pairs
-(`weight_g`/`weight_v`) are folded in `SynthesizerTrn.load_state_dict`.
+(`weight_g`/`weight_v`, or `parametrizations.weight.original0/1`) are
+folded in `SynthesizerTrn.load_state_dict`.
 The posterior encoder `enc_q.*` exists only in a model built for training
 (`posterior=True`); an inference model drops it at load. Convolution
 weights are plain tensors, in training too, as in the JAX model: weight
@@ -167,20 +168,31 @@ class Generator(nn.Module):
         return torch.tanh(x).transpose(1, 2)
 
 
-def fold_weight_norm(state_dict: dict) -> dict:
-    """Replace each `<p>.weight_g`/`<p>.weight_v` pair by `<p>.weight =
-    g * v / ||v||` (norm over every dim but 0, torch weight_norm's dim=0)."""
+# the two forms of a weight-norm pair: torch.nn.utils.weight_norm's, and the
+# newer torch.nn.utils.parametrizations.weight_norm's
+WEIGHT_NORM_FORMS = ((".weight_g", ".weight_v"),
+                     (".parametrizations.weight.original0", ".parametrizations.weight.original1"))
+
+
+def fold_weight_norm(state_dict: dict, dim: int = 0) -> dict:
+    """Replace each weight-norm pair, `<p>.weight_g`/`<p>.weight_v` or
+    `<p>.parametrizations.weight.original0`/`original1`, by `<p>.weight =
+    g * v / ||v||`, the norm over every dim but `dim` (torch weight_norm's
+    `dim`, 0 by default)."""
     out = {}
     for k, v in state_dict.items():
-        if k.endswith(".weight_v"):
-            continue
-        if k.endswith(".weight_g"):
-            p = k[: -len(".weight_g")]
-            wv = state_dict[f"{p}.weight_v"].float()
-            norm = torch.sqrt((wv**2).sum(dim=tuple(range(1, wv.ndim)), keepdim=True))
-            out[f"{p}.weight"] = v.float() * wv / torch.clamp_min(norm, 1e-12)
-            continue
-        out[k] = v
+        for g_name, v_name in WEIGHT_NORM_FORMS:
+            if ("." + k).endswith(v_name):
+                break
+            if ("." + k).endswith(g_name):
+                p = k[: len(k) + 1 - len(g_name)]  # "<p>." ("" for a top-level module)
+                wv = state_dict[p + v_name[1:]].float()
+                axes = tuple(a for a in range(wv.ndim) if a != dim % wv.ndim)
+                norm = torch.sqrt((wv**2).sum(dim=axes, keepdim=True))
+                out[p + "weight"] = v.float() * wv / torch.clamp_min(norm, 1e-12)
+                break
+        else:
+            out[k] = v
     return out
 
 

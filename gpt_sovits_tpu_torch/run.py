@@ -1,8 +1,11 @@
-"""Library entry points for training (port of gpt_sovits_tpu/run.py
-`run_train_s1` / `run_train_s2` / `run_train_v3`): the v2 fine-tune recipe,
-S2 first, then S1, and the v3/v4 CFM fine-tune (full or LoRA), from a
-prepared experiment directory (train/data.py) to full checkpoints and
-reference-format weights in `ckpt_dir`.
+"""Library entry points for data preparation and training (port of
+gpt_sovits_tpu/run.py `run_prepare`, `run_train_s1` / `run_train_s2` /
+`run_train_v3` and `latest_step_model`): a `.list` manifest to a prepared
+experiment directory (prepare/extract.py, on the models of
+utils/loaders.py); the v2 fine-tune recipe, S2 first, then S1, and the
+v3/v4 CFM fine-tune (full or LoRA), from a prepared experiment directory
+(train/data.py) to full checkpoints and reference-format weights in
+`ckpt_dir`.
 
 All run on the CUDA device unless `device` says otherwise (`device="cpu"`),
 in float32 with TF32 off (`resolve_device`). A run resumes from the newest
@@ -27,6 +30,7 @@ randomness from (seed, epoch, rank); the step is the global batch's
 from __future__ import annotations
 
 import os
+import sys
 from typing import Callable, Optional
 
 import numpy as np
@@ -74,6 +78,98 @@ def _check_f32(*models) -> None:
         bad = sorted({str(p.dtype) for p in m.parameters() if p.dtype != torch.float32})
         if bad:
             raise TypeError(f"{type(m).__name__} holds {bad} parameters; training runs in float32")
+
+
+def run_prepare(list_file: str, exp_dir: str, *, version: str = "v2", bert: Optional[str] = None,
+                hubert: Optional[str] = None, s2: Optional[str] = None, sv: Optional[str] = None, device=None,
+                log: Callable[..., None] = print) -> None:
+    """Dataset feature extraction (reference prepare_datasets/1-get-text.py,
+    2-get-hubert-wav32k.py, 2-get-sv.py, 3-get-semantic.py in one call), on
+    the reference's model files: chinese-roberta's layer -3 for the zh
+    lines (`bert`, f32), CNHuBERT features and the 32 kHz wavs (`hubert`),
+    the semantic codes of the S2 file's quantizer (`s2`) and ERes2NetV2
+    embeddings over `kaldi_fbank` (`sv`). A stage whose model is not given
+    is skipped, as in the JAX package; the models run on `device` (None:
+    CUDA)."""
+    from gpt_sovits_tpu_torch import resolve_device
+    from gpt_sovits_tpu_torch.prepare import extract
+    from gpt_sovits_tpu_torch.utils.loaders import load_bert, load_hubert, load_s2, load_sv
+
+    dev = resolve_device(device)
+    os.makedirs(exp_dir, exist_ok=True)
+    for problem in extract.check_details(list_file=list_file):  # my_utils.check_details
+        log(f"warning: {problem}", file=sys.stderr)
+
+    bert_fn = None
+    if bert:
+        bert_model, tok = load_bert(bert)
+        bert_model.to(dev, torch.float32).eval()
+
+        @torch.no_grad()
+        def bert_fn(norm_text, word2ph):
+            ids = torch.from_numpy(tok(norm_text, return_tensors="np")["input_ids"]).to(dev)
+            hidden = bert_model(ids)[-3][0, 1:-1].float().cpu().numpy()
+            return np.repeat(hidden, word2ph, axis=0)
+
+    extract.prepare_text(list_file, exp_dir, version=version, bert_fn=bert_fn)
+    extract.merge_text_shards(exp_dir, 1)
+
+    if hubert:
+        hubert_model = load_hubert(hubert).to(dev).eval()
+
+        @torch.no_grad()
+        def hubert_fn(w):
+            return hubert_model(torch.from_numpy(np.asarray(w, np.float32)[None]).to(dev))[0].float().cpu().numpy()
+
+        extract.prepare_audio(list_file, exp_dir, hubert_fn=hubert_fn)
+
+    if s2:
+        model, _ = load_s2(s2, version if version in ("v1", "v2") else None)
+        model.to(dev).eval()
+
+        @torch.no_grad()
+        def extract_latent_fn(ssl):
+            return model.extract_latent(torch.from_numpy(ssl[None]).to(dev))[0].cpu().numpy()
+
+        extract.prepare_semantic(list_file, exp_dir, extract_latent_fn=extract_latent_fn)
+        extract.merge_semantic_shards(exp_dir, 1)
+
+    if sv:
+        from gpt_sovits_tpu_torch.models.eres2net import kaldi_fbank
+
+        sv_model = load_sv(sv).to(dev).eval()
+
+        @torch.no_grad()
+        def sv_fn(w):
+            return sv_model(kaldi_fbank(torch.from_numpy(np.asarray(w, np.float32)[None]).to(dev)))[0].float().cpu().numpy()
+
+        extract.prepare_sv(list_file, exp_dir, sv_fn=sv_fn)
+    log("prepare done:", exp_dir)
+
+
+def latest_step_model(directory: str, ext: str) -> str:
+    """Newest-step weight file in a directory (get_trained_models.py:23
+    `get_final_step_model`, the same file-name conventions: `-e15`,
+    `_e48_s336`, `step_1000`, `_1000.`); "" when there is none."""
+    import re
+
+    if not os.path.isdir(directory):
+        return ""
+    best, best_step = "", -1
+    for f in sorted(os.listdir(directory)):
+        if not f.endswith(ext):
+            continue
+        step = -1
+        m = re.search(r"_e(\d+)_s(\d+)", f)
+        if m:
+            step = int(m.group(2))
+        else:
+            m = re.search(r"-e(\d+)", f) or re.search(r"step_(\d+)", f) or re.search(r"_(\d+)\.", f)
+            if m:
+                step = int(m.group(1))
+        if step > best_step:
+            best, best_step = os.path.join(directory, f), step
+    return best
 
 
 def _resume(ckpt_dir: str, device, log) -> Optional[dict]:

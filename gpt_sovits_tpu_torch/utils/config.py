@@ -1,11 +1,13 @@
 """Typed configuration (a copy of gpt_sovits_tpu/utils/config.py's
 MelConfig, MEL_V3, MEL_V4, S1Config, S2Config, TrainConfig,
-InferenceConfig, s2_config_for_version) and the v4 vocoder's constants of
+InferenceConfig, s2_config_for_version and the readers of the reference's
+config files) and the v4 vocoder's constants of
 gpt_sovits_tpu/utils/loaders.py `load_vocoder`."""
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -131,6 +133,7 @@ class InferenceConfig:
     """Serving knobs (reference: TTS_Config, TTS.py:217-409 and run() kwargs)."""
 
     report_timing: bool = False  # print the per-request phase line (TTS.py:1317)
+    version: str = "v2"  # the model version the config names; TTSPipeline takes its own from its models
     top_k: int = 15
     top_p: float = 1.0
     temperature: float = 1.0
@@ -163,3 +166,65 @@ def vocoder_v4_config() -> "S2Config":
         s2_config_for_version("v4"),
         upsample_rates=(10, 6, 2, 2, 2), upsample_kernel_sizes=(20, 12, 4, 4, 4), upsample_initial_channel=512,
     )
+
+
+def s2_config_from_reference_json(path: str, version: str = "v2") -> "S2Config":
+    """A reference configs/s2*.json (utils.get_hparams HParams) in the typed
+    tree."""
+    with open(path, encoding="utf-8") as f:
+        d = json.load(f)
+    m = d.get("model", {})
+    data = d.get("data", {})
+    return S2Config(
+        version=version,
+        spec_channels=data.get("filter_length", 2048) // 2 + 1,
+        segment_size=d.get("train", {}).get("segment_size", 20480) // data.get("hop_length", 640),
+        inter_channels=m.get("inter_channels", 192),
+        hidden_channels=m.get("hidden_channels", 192),
+        filter_channels=m.get("filter_channels", 768),
+        n_heads=m.get("n_heads", 2),
+        n_layers=m.get("n_layers", 6),
+        kernel_size=m.get("kernel_size", 3),
+        p_dropout=m.get("p_dropout", 0.1),
+        resblock_kernel_sizes=tuple(m.get("resblock_kernel_sizes", (3, 7, 11))),
+        resblock_dilation_sizes=tuple(tuple(x) for x in m.get("resblock_dilation_sizes", ((1, 3, 5),) * 3)),
+        upsample_rates=tuple(m.get("upsample_rates", (10, 8, 2, 2, 2))),
+        upsample_initial_channel=m.get("upsample_initial_channel", 512),
+        upsample_kernel_sizes=tuple(m.get("upsample_kernel_sizes", (16, 16, 8, 2, 2))),
+        gin_channels=m.get("gin_channels", 512),
+        semantic_frame_rate=m.get("semantic_frame_rate", "25hz"),
+        freeze_quantizer=bool(m.get("freeze_quantizer", True)),
+    )
+
+
+def s1_config_from_reference_yaml(path: str) -> "S1Config":
+    """A reference configs/s1*.yaml in the typed tree (PyYAML is imported
+    here: the card's machine may lack it)."""
+    import yaml
+
+    with open(path, encoding="utf-8") as f:
+        d = yaml.safe_load(f)
+    m = d.get("model", {})
+    return S1Config(
+        vocab_size=m.get("vocab_size", 1025),
+        phoneme_vocab_size=m.get("phoneme_vocab_size", 732),
+        embedding_dim=m.get("embedding_dim", 512),
+        hidden_dim=m.get("hidden_dim", 512),
+        num_heads=m.get("head", 16),
+        ffn_dim=m.get("hidden_dim", 512) * 4,
+        num_layers=m.get("n_layer", 24),
+        dropout=float(m.get("dropout", 0.0)),
+        eos_id=m.get("EOS", 1024),
+    )
+
+
+def inference_config_from_reference_yaml(path: str, version: str = "v2") -> "InferenceConfig":
+    """The `version` (else `custom`) section of a reference
+    configs/tts_infer.yaml (TTS_Config); as the JAX reader, it takes the
+    section's version only."""
+    import yaml
+
+    with open(path, encoding="utf-8") as f:
+        d = yaml.safe_load(f) or {}
+    sec = d.get(version, d.get("custom", {})) or {}
+    return InferenceConfig(version=sec.get("version", version))

@@ -38,14 +38,15 @@ def test_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.startswith("OK")
-    assert int(res.stdout.split()[1]) >= 47  # every module of the slices so far was imported
+    assert int(res.stdout.split()[1]) >= 54  # every module of the slices so far was imported
     for mod in ("models.dit", "models.v3", "ops.qmatmul", "ops.qflash", "dsp.sola", "models.bigvgan", "models.apbwe",
                 "ops.snake_aa", "infer.continuous", "serve.continuous_service", "serve.api", "serve.gui_client",
                 "models.bert", "text.bert_tokenizer", "text.zh_norm", "text.tone_sandhi", "text.chinese",
                 "text.lang_segmenter", "text.japanese", "text.korean", "text.cantonese", "text.g2pw",
                 "utils.onnx_lite", "run", "train.optim", "train.scaled_adam", "train.s1_train", "train.s2_train",
                 "train.data", "train.ckpt", "models.discriminators", "train.s2_train_v3", "train.bigvgan_train",
-                "parallel.launch", "parallel.sync", "native"):
+                "parallel.launch", "parallel.sync", "native", "utils.checkpoint_compat", "utils.safetensors",
+                "utils.loaders", "prepare.extract", "dsp.slicer", "cli"):
         assert f"gpt_sovits_tpu_torch.{mod}" in res.stdout, mod
 
 

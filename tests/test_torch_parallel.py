@@ -8,6 +8,7 @@ processes are started with subprocess under a timeout and killed on
 expiry (tests/torch_dp_worker.py)."""
 
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -61,27 +62,33 @@ def _no_tensorboard(monkeypatch):
 
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
+    """The two workers' results; their corpus and dumps (`r0.pt`, `r1.pt`,
+    ~550 MB each: full-width discriminator gradients and moments) are
+    deleted when the module's tests end, passed or failed."""
     tmp = tmp_path_factory.mktemp("dp")
-    corpus = _corpus(tmp / "exp")
-    port = _free_port()
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT), str(ROOT / "tests")]))
-    procs = [subprocess.Popen([sys.executable, str(ROOT / "tests" / "torch_dp_worker.py"), str(tmp / f"r{r}.pt"),
-                               str(port), "2", str(r), corpus], env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
-    logs = []
     try:
-        for p in procs:
-            logs.append(p.communicate(timeout=TIMEOUT)[0])
-    except subprocess.TimeoutExpired:
-        pytest.fail("the data-parallel workers did not finish in time")
+        corpus = _corpus(tmp / "exp")
+        port = _free_port()
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT), str(ROOT / "tests")]))
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "tests" / "torch_dp_worker.py"), str(tmp / f"r{r}.pt"),
+                                   str(port), "2", str(r), corpus], env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=TIMEOUT)[0])
+        except subprocess.TimeoutExpired:
+            pytest.fail("the data-parallel workers did not finish in time")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for p, log in zip(procs, logs):
+            assert p.returncode == 0, log[-3000:]
+        yield [torch.load(tmp / f"r{r}.pt", weights_only=False) for r in range(2)]
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, log in zip(procs, logs):
-        assert p.returncode == 0, log[-3000:]
-    return [torch.load(tmp / f"r{r}.pt", weights_only=False) for r in range(2)]
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

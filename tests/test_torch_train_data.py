@@ -8,6 +8,7 @@ refusing to run without a card (data-parallel or not)."""
 
 import dataclasses
 import json
+import shutil
 import sys
 
 import jax
@@ -50,6 +51,15 @@ def _no_tensorboard(monkeypatch):
     pull in TensorFlow (seconds of start-up), so the tests run without it
     (JSONL only)."""
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+
+
+@pytest.fixture(autouse=True)
+def _remove_tmp_path(tmp_path):
+    """Each test's checkpoints and exports are deleted when it ends, passed
+    or failed: a full S2 state holds the full-width discriminator and its
+    AdamW moments (~765 MB a file)."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

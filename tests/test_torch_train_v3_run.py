@@ -6,6 +6,7 @@ JAX exporter `s2v3_params_to_torch` on the same weights, a strict reload)
 and `pretrained=` from it; a LoRA run whose base never moves and whose
 export holds the merged weights."""
 
+import shutil
 import sys
 
 import numpy as np
@@ -37,6 +38,14 @@ QUIET = dict(log=lambda *a, **k: None)
 @pytest.fixture(autouse=True)
 def _no_tensorboard(monkeypatch):
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)  # JSONL only (test_torch_train_data.py)
+
+
+@pytest.fixture(autouse=True)
+def _remove_tmp_path(tmp_path):
+    """Each test's checkpoints and exports are deleted when it ends, passed
+    or failed (the runs' full states and fp16 exports, ~2 GB a test)."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")
