@@ -3,8 +3,9 @@ step in `csrc/decode_step.cu`, K6 `csrc/snake_aa.cu` and its plan in
 `ops/snake_aa.py`, K3, K4's path and the s8 GEMM of K2/K3/K4 in
 `csrc/qmatmul.cu` and its plan in `ops/qmatmul.py`, K5 `csrc/qflash.cu`),
 in the continuous-batching pool that drives K1 (`infer/continuous.py`), in
-the pipeline's zh BERT features (`infer/pipeline.py`), in the training
-BigVGAN's activations (`models/bigvgan.py` with K6's gradient refusal
+the pipeline's zh BERT features (`infer/pipeline.py`), in the corpus tools
+(the RoFormer's rotary in `corpus/roformer.py`, FRCRN's masks in
+`models/frcrn.py`), in the training BigVGAN's activations (`models/bigvgan.py` with K6's gradient refusal
 removed), in the reference-checkpoint loaders (`utils/loaders.py`) or in
 the reference-format export (`train/ckpt.py`), each of which must fail
 chip_smoke.py's check of that kernel or path on the card.
@@ -16,8 +17,8 @@ directory outside the checkout, with one line of one source replaced (or,
 where a fault needs it, one line in each of several sources); its checks
 (chip_smoke.k1_case, k1_rows_case, snake_case, k3_case, k4_case, k5_case
 or gemm_case at a main-path shape, k1_sweep_case, serve_case,
-path_zh_case, train_bigvgan_case, cli_case) run in a child process there, which
-builds the copy's kernels. The same checks run first on the unbroken
+path_zh_case, train_bigvgan_case, cli_case, roformer_case, frcrn_case) run
+in a child process there, which builds the copy's kernels. The same checks run first on the unbroken
 sources and must pass. One JSON line per copy and check: the check's
 outcome and the end of its assertion message.
 """
@@ -43,6 +44,8 @@ POOL = "gpt_sovits_tpu_torch/infer/continuous.py"
 PIPE = "gpt_sovits_tpu_torch/infer/pipeline.py"
 BIGVGAN = "gpt_sovits_tpu_torch/models/bigvgan.py"
 LOADERS = "gpt_sovits_tpu_torch/utils/loaders.py"
+ROFORMER = "gpt_sovits_tpu_torch/corpus/roformer.py"
+FRCRN = "gpt_sovits_tpu_torch/models/frcrn.py"
 CKPT = "gpt_sovits_tpu_torch/train/ckpt.py"
 CHECKS = {
     # K1's whole step at full width, random and peaked inputs (step_cases)
@@ -81,6 +84,10 @@ CHECKS = {
     # the loaders on reference-format files from the seed: cli (every loaded tensor equals the file's weights
     # after the container's fp16 rounding; weight-norm pairs folded as torch folds them)
     "cli": "c.cli_case(g)",
+    # the corpus tools at full width: the BS-RoFormer's first time and band attentions against the
+    # complex-number rotary formulation; FRCRN's output against its masks composed from its two U-Nets
+    "roformer_rotary": "c.roformer_case(g)",
+    "frcrn_masks": "c.frcrn_case(g)",
 }
 # (name, source, the line as it is, the broken line, checks that must fail); a fault
 # that needs lines in several sources gives a tuple of each
@@ -158,6 +165,11 @@ COPIES = [
     ("exports: the reference container's fp16 rounding skipped (the files hold float32)", CKPT,
      '    opt = {"weight": {k: v.detach().cpu().half() for k, v in state_dict.items()}, "config": config or {},',
      '    opt = {"weight": {k: v.detach().cpu() for k, v in state_dict.items()}, "config": config or {},', ("cli",)),
+    ("RoFormer: the rotary's pairs taken as halves, not interleaved", ROFORMER,
+     "    return torch.stack((-pairs[..., 1], pairs[..., 0]), dim=-1).reshape(x.shape)",
+     "    return torch.cat((-x[..., x.shape[-1] // 2:], x[..., : x.shape[-1] // 2]), dim=-1)", ("roformer_rotary",)),
+    ("FRCRN: the second mask without its tanh", FRCRN, "        m2 = torch.tanh(self.unet2(u1)) + m1",
+     "        m2 = self.unet2(u1) + m1", ("frcrn_masks",)),
 ]
 
 

@@ -98,7 +98,23 @@ train_bigvgan (BigVGAN at full width with use_kernel=False against MPD + MRD,
 4 steps at batch 4 on 64-frame segments of the corpus resampled to 24 kHz,
 read by the native reader; a step's time; one step at B=1, 16 frames, card
 vs CPU vs CPU float64 over G and D), K1-K7 counted 0 over each training
-phase; grad_refusal (K6's wrapper on the card refuses an input that
+phase; corpus (from the seed, each corpus model at its published width
+written as its published file: BS-RoFormer and Mel-Band RoFormer `.ckpt`,
+the HP CascadedASPPNet (61968KB) and the DeEcho CascadedNet (nout 48)
+`.pth`, an MDX Conv/BatchNormalization/Relu ONNX graph at MDXConfig(),
+FRCRN's pytorch_model.bin; each loaded by the port's loader and run through
+`separate_vocals` on a 10 s 44.1 kHz stereo mix or `denoise` on 10 s of 16
+kHz mono: seconds an audio second, peak memory; each model's forward on one
+window on the card and on the CPU, relative L2 < 1e-3; the RoFormer's
+attention against a complex-number rotary formulation and FRCRN against its
+masks composed in the script; K1-K7 launched 0 times), services (the
+training REST service over HTTP with build_training_steps at v2ProPlus on
+the cli phase's kind of reference files: a character, two uploads,
+processing, labels set through the label route, prepare -> S2 -> S1 at full
+width, one POST /api/v1/inference, an int16 WAV and one K1 launch an S1
+step; the webui over HTTP: separate (the BS-RoFormer file), slice, denoise
+(FRCRN), prepare and tts jobs, each done, tts one K1 launch an S1 step;
+each step's seconds); grad_refusal (K6's wrapper on the card refuses an input that
 requires a gradient, before its launch); gemm_tiles (the s8 GEMM alone at each tile width, K2/K4's and K3's,
 beside gemm_plan's choice); with --parent, compare_trees (K2, K4, K5, K3,
 K1's step and K6 for one BigVGAN call timed on the earlier tree's kernels
@@ -114,6 +130,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import os
 import struct
 import subprocess
 import sys
@@ -2221,7 +2238,11 @@ class recorded_tokens:
 
 
 def _wav_pcm16(path: Path) -> tuple[int, np.ndarray]:
-    data = path.read_bytes()
+    return _pcm16(path.read_bytes())
+
+
+def _pcm16(data: bytes) -> tuple[int, np.ndarray]:
+    """A mono 16-bit PCM WAV's rate and samples."""
     assert data[:4] == b"RIFF" and data[8:16] == b"WAVEfmt " and data[36:40] == b"data", data[:44]
     fmt, ch, sr, _, _, bits = struct.unpack("<HHIIHH", data[20:36])
     assert (fmt, ch, bits) == (1, 1, 16), (fmt, ch, bits)
@@ -3051,6 +3072,442 @@ def train_bigvgan_case(g: torch.Generator) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phases: corpus (the UVR5 separators and FRCRN), services (the training REST
+# service and the webui)
+# ---------------------------------------------------------------------------
+
+CORPUS_BAR = 1e-3  # relative L2 of a corpus model's output on one window, card vs CPU, both f32 (TF32 off)
+ROTARY_BAR = 1e-4  # relative L2 of a RoFormer attention against the complex-number rotary formulation
+FRCRN_BAR = 1e-5  # relative L2 of FRCRN's output against its masks composed here
+MIX_SEC = 10.0
+VR_WIDTHS = {"hp": 32, "deecho": (48, 128)}  # the 61968KB HP net's ch; DeEcho's nout, nout_lstm
+
+
+def seeded_mix(seed: int, sr: int = 44100, sec: float = MIX_SEC, channels: int = 2) -> np.ndarray:
+    """(channels, sr * sec): a voiced line (reference_wav) over a chord and
+    noise, the channels panned differently."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(sr * sec)) / sr
+    voice = reference_wav(seed, sr, sec)
+    chord = sum(0.05 * np.sin(2 * np.pi * f * t) for f in (220.0, 277.2, 329.6))
+    noise = 0.01 * rng.standard_normal((channels, t.size))
+    pans = np.linspace(0.8, 1.2, channels)[:, None]
+    return (voice[None] * pans + chord[None] / pans + noise).astype(np.float32)
+
+
+def _randomize_bn(model: torch.nn.Module, seed: int) -> torch.nn.Module:
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d)):
+                m.running_mean.copy_(torch.rand(m.running_mean.shape, generator=g) * 0.2 - 0.1)
+                m.running_var.copy_(torch.rand(m.running_var.shape, generator=g) * 0.5 + 0.75)
+    return model
+
+
+def write_corpus_models(d: Path, seed: int) -> dict:
+    """From the seed, each corpus model at its published width as its
+    published file: BS-RoFormer (`DEFAULT_BS_MODEL`) and Mel-Band RoFormer
+    (`DEFAULT_MEL_MODEL`) state dicts as `.ckpt`, with the rotary tables
+    rotary_embedding_torch keeps as parameters; the HP `CascadedASPPNet` at
+    the 61968KB widths and the DeEcho `CascadedNet` (nout 48, nout_lstm 128)
+    as `.pth` state dicts with BatchNorm statistics; MDX-Net as a Conv /
+    BatchNormalization / Relu ONNX graph (write_mdx_onnx); FRCRN at
+    FRCRNConfig() as its `pytorch_model.bin`. -> {name: path}."""
+    from gpt_sovits_tpu_torch.corpus import roformer as rof
+    from gpt_sovits_tpu_torch.corpus import vr
+    from gpt_sovits_tpu_torch.models.frcrn import FRCRN
+
+    d.mkdir(parents=True, exist_ok=True)
+    paths = {}
+    for i, (name, kw, file) in enumerate((("bs_roformer", rof.DEFAULT_BS_MODEL, "model_bs_roformer_ep_317_sdr_12.9755.ckpt"),
+                                          ("mel_roformer", rof.DEFAULT_MEL_MODEL, "mel_band_roformer_seeded.ckpt"))):
+        torch.manual_seed(seed + i)
+        sd = rof.Roformer(rof.RoformerConfig.from_dict(kw)).state_dict()
+        dh = kw["dim_head"]
+        inv = 1.0 / (10000 ** (torch.arange(0, dh, 2).float() / dh))
+        sd.update({k.replace("to_qkv.weight", "rotary_embed.freqs"): inv for k in list(sd) if k.endswith("to_qkv.weight")})
+        torch.save(sd, d / file)
+        paths[name] = str(d / file)
+    torch.manual_seed(seed + 2)
+    torch.save(_randomize_bn(vr.CascadedASPPNet(1344, VR_WIDTHS["hp"]), seed).state_dict(), d / "HP5_only_main_vocal.pth")
+    paths["vr_hp"] = str(d / "HP5_only_main_vocal.pth")
+    torch.manual_seed(seed + 3)
+    torch.save(_randomize_bn(vr.CascadedNet(1344, *VR_WIDTHS["deecho"]), seed).state_dict(), d / "VR-DeEchoNormal.pth")
+    paths["vr_deecho"] = str(d / "VR-DeEchoNormal.pth")
+    (d / "onnx_dereverb_By_FoxJoy").mkdir(exist_ok=True)
+    paths["mdx"] = str(d / "onnx_dereverb_By_FoxJoy" / "vocals.onnx")
+    write_mdx_onnx(paths["mdx"], seed, width=32)
+    torch.manual_seed(seed + 4)
+    (d / "speech_frcrn_ans_cirm_16k").mkdir(exist_ok=True)
+    paths["frcrn"] = str(d / "speech_frcrn_ans_cirm_16k" / "pytorch_model.bin")
+    torch.save(_randomize_bn(FRCRN(), seed).state_dict(), paths["frcrn"])
+    return paths
+
+
+def _card_and_cpu(load, run) -> dict:
+    """`load(device)` -> model; `run(model, device)` -> output tensor: the
+    same forward on the card and on the CPU, relative L2."""
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        with torch.no_grad():
+            outs[dev] = run(load(dev), dev).float().cpu()
+        torch.cuda.synchronize()
+    assert torch.isfinite(outs["cuda"]).all()
+    err = rel_l2(outs["cuda"], outs["cpu"])
+    assert err < CORPUS_BAR, err
+    return {"card_vs_cpu_rel_l2": err, "window": list(outs["cuda"].shape)}
+
+
+def corpus_forwards(paths: dict, seed: int) -> dict:
+    """Each model's forward on one window, card vs CPU: the RoFormers on 1 s
+    of stereo at 44.1 kHz, each VR net on one 512-frame window of its band
+    spectrum, MDX on one chunk (the net on +x and -x), FRCRN on a 5 s clip."""
+    from gpt_sovits_tpu_torch.corpus import mdx, roformer, vr
+    from gpt_sovits_tpu_torch.models.frcrn import load_frcrn
+
+    x44 = torch.from_numpy(seeded_mix(seed + 1, sec=1.0))[None]
+    out = {}
+    for name in ("bs_roformer", "mel_roformer"):
+        out[name] = _card_and_cpu(lambda dev, n=name: roformer.load_roformer(paths[n], device=dev)[0],
+                                  lambda m, dev: m(x44.to(dev)))
+    spec, _, _ = vr.wave_to_combined_spec(seeded_mix(seed + 2, sec=6.0), vr.MODEL_PARAMS_4BAND_V2)
+    mag = np.abs(spec)[None, :, :, :512]
+    win = torch.from_numpy((mag / mag.max()).astype(np.float32))
+    for name in ("vr_hp", "vr_deecho"):
+        out[name] = _card_and_cpu(lambda dev, n=name: vr.load_vr_model(paths[n], device=dev)[0],
+                                  lambda m, dev: m(win.to(dev), (85, 0.1)))
+    cfg = mdx.MDXConfig()
+    chunk = torch.from_numpy(seeded_mix(seed + 3, sec=cfg.chunk_size / 44100 + 0.01)[:, : cfg.chunk_size])[None]
+    out["mdx"] = _card_and_cpu(lambda dev: mdx.MDXSeparator(paths["mdx"], cfg, device=dev),
+                               lambda m, dev: m.forward(chunk))
+    clip = torch.from_numpy(seeded_mix(seed + 4, sr=16000, sec=5.0, channels=1))
+    out["frcrn"] = _card_and_cpu(lambda dev: load_frcrn(paths["frcrn"], device=dev), lambda m, dev: m(clip.to(dev))[0])
+    return out
+
+
+def corpus_runs(paths: dict, seed: int) -> dict:
+    """Each model through the entry point a user calls, on the card: the
+    separators through `separate_vocals` on a seeded 10 s 44.1 kHz stereo
+    mix, FRCRN through `denoise` on 10 s of 16 kHz mono; the loading from
+    its file included. -> seconds, seconds per audio second, peak GB."""
+    from gpt_sovits_tpu_torch.corpus.denoise import _FRCRN_CACHE, denoise
+    from gpt_sovits_tpu_torch.corpus.uvr5 import separate_vocals
+
+    mix = seeded_mix(seed)
+    out = {}
+    for name in ("bs_roformer", "mel_roformer", "vr_hp", "vr_deecho", "mdx", "frcrn"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if name == "frcrn":
+            wav = seeded_mix(seed, sr=16000, channels=1)[0]
+            den = denoise(wav, 16000, paths["frcrn"])
+            torch.cuda.synchronize()
+            assert den.shape == wav.shape and np.isfinite(den).all()
+            res = {"rms_in": float(np.sqrt((wav**2).mean())), "rms_out": float(np.sqrt((den**2).mean()))}
+            _FRCRN_CACHE.clear()
+        else:
+            vocals, other = separate_vocals(mix, 44100, model_path=paths[name], agg=10)
+            torch.cuda.synchronize()
+            assert vocals.shape == other.shape == mix.shape, (name, vocals.shape)
+            assert np.isfinite(vocals).all() and np.isfinite(other).all()
+            res = {"rms_vocals": float(np.sqrt((vocals**2).mean())), "rms_other": float(np.sqrt((other**2).mean()))}
+            if "roformer" in name or name == "mdx":  # other = mix - stem, stem written as float32
+                res["sum_err"] = float(np.abs(vocals + other - mix).max())
+                assert res["sum_err"] < 1e-4, res
+        s = time.perf_counter() - t0
+        out[name] = {"s": s, "s_per_audio_s": s / MIX_SEC, "peak_GB": torch.cuda.max_memory_allocated() / 1e9, **res}
+        torch.cuda.empty_cache()
+    return out
+
+
+def rotary_reference(attn, x: torch.Tensor) -> torch.Tensor:
+    """A RoFormer Attention computed here: rotary as the multiplication of
+    each adjacent pair (q0 + i q1) by exp(i * pos * theta_k), softmax
+    attention, sigmoid head gates, out projection."""
+    b, n, dim = x.shape
+    h, dh = attn.heads, attn.dim_head
+    y = torch.nn.functional.normalize(x, dim=-1) * dim**0.5 * attn.norm.gamma
+    q, k, v = (y @ attn.to_qkv.weight.T).reshape(b, n, 3, h, dh).permute(2, 0, 3, 1, 4)
+    theta = 1.0 / (10000.0 ** (torch.arange(0, dh, 2, device=x.device, dtype=torch.float64) / dh))
+    rot = torch.polar(torch.ones(n, dh // 2, device=x.device, dtype=torch.float64),
+                      torch.arange(n, device=x.device, dtype=torch.float64)[:, None] * theta)
+    q, k = (torch.view_as_real(torch.view_as_complex(t.double().reshape(b, h, n, dh // 2, 2).contiguous()) * rot)
+            .reshape(b, h, n, dh).float() for t in (q, k))
+    att = torch.softmax(q @ k.transpose(-1, -2) / dh**0.5, dim=-1) @ v
+    gates = torch.sigmoid(y @ attn.to_gates.weight.T + attn.to_gates.bias).transpose(1, 2)[..., None]
+    return (att * gates).transpose(1, 2).reshape(b, n, h * dh) @ attn.to_out[0].weight.T
+
+
+def roformer_case(g: torch.Generator) -> dict:
+    """The full-width BS-RoFormer's first time and band attentions on the
+    card, against rotary_reference, on inputs of 801 frames and 62 bands."""
+    from gpt_sovits_tpu_torch.corpus import roformer as rof
+
+    torch.manual_seed(int(torch.randint(0, 2**31 - 1, (1,), generator=g, device=g.device)))
+    m = rof.Roformer(rof.RoformerConfig.from_dict(rof.DEFAULT_BS_MODEL)).to("cuda").eval()
+    out = {}
+    for name, tr, n in (("time", m.layers[0][0], 801), ("band", m.layers[0][1], 62)):
+        attn = tr.layers[0][0]
+        x = torch.randn((4, n, m.cfg.dim), generator=g, device="cuda")
+        with torch.no_grad():
+            err = rel_l2(attn(x), rotary_reference(attn, x))
+        assert err < ROTARY_BAR, (name, err)
+        out[name] = err
+    return out
+
+
+def frcrn_case(g: torch.Generator) -> dict:
+    """FRCRN at FRCRNConfig() on the card on 5 s at 16 kHz, against its
+    masks composed here from its two U-Nets: tanh(u1) + tanh(unet2(u1)),
+    applied by complex multiplication; the masks within 2."""
+    from gpt_sovits_tpu_torch.models import frcrn as fr
+
+    torch.manual_seed(int(torch.randint(0, 2**31 - 1, (1,), generator=g, device=g.device)))
+    m = _randomize_bn(fr.FRCRN(), 0).to("cuda").eval()
+    x = 0.3 * torch.randn((2, 80000), generator=g, device="cuda")
+    with torch.no_grad():
+        wav, (mr, mi) = m(x)
+        re, im = fr.frcrn_stft(x)
+        spec = torch.nn.functional.pad(torch.stack([re, im]), (0, 0, 0, -re.shape[1] % 64))[:, :, None]
+        u1 = m.unet(spec)
+        mask = (torch.tanh(u1) + torch.tanh(m.unet2(u1)))[:, :, 0, : re.shape[1]]
+        want = fr.frcrn_istft(re * mask[0] - im * mask[1], re * mask[1] + im * mask[0], x.shape[-1])
+    errs = {"wav": rel_l2(wav, want), "mask_re": rel_l2(mr, mask[0]), "mask_im": rel_l2(mi, mask[1]),
+            "mask_max": float(torch.maximum(mr.abs().max(), mi.abs().max()))}
+    assert max(errs["wav"], errs["mask_re"], errs["mask_im"]) < FRCRN_BAR and errs["mask_max"] <= 2.0, errs
+    return errs
+
+
+def corpus_phase(d: Path, seed: int) -> dict:
+    t0 = time.perf_counter()
+    paths = write_corpus_models(d, seed)
+    rec = {"write_s": time.perf_counter() - t0,
+           "file_MB": {k: Path(p).stat().st_size / 1e6 for k, p in paths.items()}}
+    reset_all_launch_counts()
+    rec["runs"] = corpus_runs(paths, seed)
+    rec["card_vs_cpu"] = corpus_forwards(paths, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 70)
+    rec["roformer_rotary"] = roformer_case(g)
+    rec["frcrn_masks"] = frcrn_case(g)
+    rec["launches"] = launches_zero("corpus")
+    rec["paths"] = paths
+    return rec
+
+
+SPEAKER_TEXTS = ["The quick brown fox jumps over the lazy dog near the river bank.",
+                 "She sells sea shells by the sea shore every single summer morning.",
+                 "A journey of a thousand miles begins with one small step forward.",
+                 "Bright stars were shining over the quiet village late at night."]
+
+
+def speaker_upload(path: Path, seed: int, sr: int = 32000) -> None:
+    """Two 4.2 s voiced stretches around a second of silence: the service's
+    slicer cuts it in two slices of one S2 and one S1 bucket."""
+    from gpt_sovits_tpu_torch.dsp.audio_io import save_wav
+
+    voiced = [reference_wav(seed + i, sr, 4.2) for i in range(2)]
+    save_wav(str(path), np.concatenate([voiced[0], np.zeros(sr, np.float32), voiced[1]]), sr)
+
+
+def _timed_http(rec: dict, key: str, method: str, url: str, payload=None, raw: bytes | None = None,
+                timeout: float = 600):
+    t0 = time.perf_counter()
+    if raw is not None:
+        req = urllib.request.Request(url, data=raw, method=method)
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            code, body = r.status, r.read()
+    else:
+        code, body = _http(method, url, payload, timeout)
+    rec[key] = time.perf_counter() - t0
+    return code, body
+
+
+def training_service_phase(d: Path, files: dict, seed: int) -> dict:
+    """The training REST service over HTTP with build_training_steps at
+    v2ProPlus on the reference files: create a character, upload two seeded
+    recordings, process (slicing; no ASR backend: the labels are set through
+    the label route), train (prepare -> S2 -> S1, one epoch each at batch 2,
+    full width on the card), one POST /api/v1/inference: an int16 WAV, one
+    K1 launch an S1 step."""
+    from gpt_sovits_tpu_torch.serve.training_service import TrainingService, serve_training
+    from gpt_sovits_tpu_torch.serve.training_steps import ServiceConfig, build_training_steps
+
+    p = files["paths"]
+    cfg = ServiceConfig(root=str(d / "characters"), version="v2ProPlus", s1_epochs=1, s2_epochs=1, s1_batch_size=2,
+                        s2_batch_size=2, bert_path=p["bert"], hubert_path=p["hubert"], sv_path=p["sv"],
+                        pretrained_s2g=p["s2"], pretrained_s1=p["s1"], asr_enabled=False)
+    svc = TrainingService(cfg.root, build_training_steps(cfg), device=cfg.device)
+    srv = serve_training(svc, port=0)
+    base = "http://%s:%d/api/v1" % srv.server_address
+    rec: dict = {"s": {}}
+    s = rec["s"]
+    d.mkdir(parents=True, exist_ok=True)
+    try:
+        assert _timed_http(s, "create", "POST", base + "/characters", {"name": "speaker"})[0] == 201
+        for i in range(2):
+            up = d / f"upload{i}.wav"
+            speaker_upload(up, seed + 10 * i)
+            code, body = _timed_http(s, f"upload{i}", "POST", base + f"/characters/speaker/audio?filename=up{i}.wav",
+                                     raw=up.read_bytes())
+            assert code == 200 and json.loads(body)["slices"] == 2, body
+        code, body = _timed_http(s, "process", "POST", base + "/characters/speaker/audio/process", {})
+        assert code == 200 and json.loads(body)["slices"] == 4, body
+        files_ = json.loads(_http("GET", base + "/characters/speaker/audio/files")[1])["dataset"]
+        wavs = sorted(f for f in files_ if f.endswith(".wav"))
+        assert len(wavs) == 4, files_
+        code, _ = _http("POST", base + "/characters/speaker/manifest", {"entries": [[w, "ZH", "-"] for w in wavs]})
+        assert code == 200
+        for i, text in enumerate(SPEAKER_TEXTS):  # the proofreading route sets each label
+            code, body = _http("POST", base + f"/characters/speaker/labels/{i}", {"text": text, "lang": "EN"})
+            assert code == 200, body
+        labels = json.loads(_http("GET", base + "/characters/speaker/labels")[1])["labels"]
+        assert [(l["lang"], l["text"]) for l in labels] == [("EN", t) for t in SPEAKER_TEXTS], labels
+        t0 = time.perf_counter()
+        reset_all_launch_counts()
+        assert _http("POST", base + "/characters/speaker/training/start", {})[0] == 202
+        step_s, last = {}, (None, t0)
+        while True:
+            st = json.loads(_http("GET", base + "/characters/speaker/training/status")[1])
+            if st.get("step") != last[0]:
+                if last[0] is not None:
+                    step_s[last[0]] = time.perf_counter() - last[1]
+                last = (st.get("step"), time.perf_counter())
+            if st["state"] != "training":
+                break
+            time.sleep(0.2)
+        if last[0] is not None:
+            step_s[last[0]] = time.perf_counter() - last[1]
+        s["train"], s["train_steps"] = time.perf_counter() - t0, step_s
+        assert st["state"] == "trained", st
+        rec["train_launches"] = launches_zero("the service's training")
+        chk = json.loads(_http("POST", base + "/characters/speaker/training/check_status", {})[1])
+        assert chk["valid"] and set(chk["steps"].values()) == {"completed"}, chk
+        rec["ckpt"] = sorted(os.listdir(Path(cfg.root) / "speaker" / "ckpt"))
+        reset_all_launch_counts()
+        with counted_steps() as steps:
+            code, body = _timed_http(s, "inference", "POST", base + "/inference",
+                                     {"character": "speaker", "text": REQUESTS[0], "lang": "en"})
+        launches = all_launch_counts()  # counted from 0 just before the inference request
+        assert code == 200, body[:300]
+        assert _riff_ok(body), body[:64]
+        sr, audio = _pcm16(body)
+        assert sr == 32000 and audio.size > 0 and np.abs(audio).max() > 0
+        launches.update(check_s1_launches(launches, steps.n))
+        rec["inference"] = {"audio_s": audio.size / 32000, "launches": launches}
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    return rec
+
+
+def _webui_job(base: str, tool: str, params: dict, timeout: float = 600) -> dict:
+    code, body = _http("POST", f"{base}/api/run/{tool}", params)
+    assert code == 202, body
+    jid = json.loads(body)["id"]
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        j = json.loads(_http("GET", f"{base}/api/jobs/{jid}")[1])
+        if j["state"] != "running":
+            break
+        time.sleep(0.1)
+    assert j["state"] == "done", (tool, j["state"], j["error"], j["log"][-5:])
+    j["s"] = j["finished"] - j["started"]
+    return j
+
+
+def webui_phase(d: Path, files: dict, corpus_paths: dict, seed: int) -> dict:
+    """The webui over HTTP, each job on the card: `separate` (the
+    BS-RoFormer file) on a seeded 10 s mix, `slice` of a recording, `denoise`
+    of the slices through the FRCRN file, `prepare` of a hand-written .list,
+    `tts` on the reference files (one K1 launch an S1 step). Each job ends
+    done."""
+    from gpt_sovits_tpu_torch.dsp.audio_io import load_wav, save_wav
+    from gpt_sovits_tpu_torch.serve.webui import serve_webui
+
+    p = files["paths"]
+    srv = serve_webui(port=0)
+    base = "http://%s:%d" % srv.server_address
+    rec: dict = {"s": {}}
+    d.mkdir(parents=True, exist_ok=True)
+    try:
+        reset_all_launch_counts()
+        save_wav(str(d / "mix.wav"), seeded_mix(seed + 5).T, 44100)
+        j = _webui_job(base, "separate", {"input": str(d / "mix.wav"), "vocal_dir": str(d / "vocals"),
+                                          "other_dir": str(d / "other"), "model": corpus_paths["bs_roformer"]})
+        rec["s"]["separate"] = j["s"]
+        voc, sr = load_wav(str(d / "vocals" / "vocal_mix.wav"), mono=False)
+        assert sr == 44100 and voc.shape == (int(44100 * MIX_SEC), 2) and np.isfinite(voc).all()
+        speaker_upload(d / "rec.wav", seed + 20)
+        rec["s"]["slice"] = _webui_job(base, "slice", {"input": str(d / "rec.wav"), "out_dir": str(d / "sliced")})["s"]
+        sliced = sorted(os.listdir(d / "sliced"))
+        assert len(sliced) == 2, sliced
+        rec["s"]["denoise"] = _webui_job(base, "denoise", {"in_dir": str(d / "sliced"), "out_dir": str(d / "den"),
+                                                           "model": corpus_paths["frcrn"]})["s"]
+        assert sorted(os.listdir(d / "den")) == sliced
+        lst = d / "webui.list"
+        lst.write_text("".join(f"{d / 'den' / n}|spk|EN|{t}\n" for n, t in zip(sliced, SPEAKER_TEXTS)), encoding="utf-8")
+        rec["s"]["prepare"] = _webui_job(base, "prepare", {"list": str(lst), "exp_dir": str(d / "exp"),
+                                                           "version": "v2ProPlus", "bert": p["bert"],
+                                                           "hubert": p["hubert"], "s2": p["s2"], "sv": p["sv"]})["s"]
+        assert (d / "exp" / "6-name2semantic.tsv").stat().st_size > 0
+        rec["data_launches"] = launches_zero("the webui's data jobs")
+        with counted_steps() as steps:
+            j = _webui_job(base, "tts", {"text": REQUESTS[2], "lang": "en", "ref_audio": str(d / "den" / sliced[0]),
+                                         "ref_text": SPEAKER_TEXTS[0], "ref_lang": "en", "s1": p["s1"], "s2": p["s2"],
+                                         "version": "v2ProPlus", "hubert": p["hubert"], "bert": p["bert"],
+                                         "sv": p["sv"], "output": str(d / "tts.wav"), "seed": str(seed)})
+        launches = all_launch_counts()  # counted from 0 just before the tts job
+        rec["s"]["tts"] = j["s"]
+        sr, audio = _wav_pcm16(d / "tts.wav")
+        assert sr == 32000 and audio.size > 0 and j["log"][-1] == "AUDIO:" + str(d / "tts.wav")
+        launches.update(check_s1_launches(launches, steps.n))
+        rec["tts"] = {"audio_s": audio.size / sr, "launches": launches}
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    return rec
+
+
+def services_phase(d: Path, corpus_paths: dict, seed: int) -> dict:
+    t0 = time.perf_counter()
+    files = write_reference_files(d / "models", seed)
+    rec = {"write_s": time.perf_counter() - t0}
+    rec["training_service"] = training_service_phase(d / "service", files, seed)
+    rec["webui"] = webui_phase(d / "webui", files, corpus_paths, seed)
+    rec["launches"] = {"training_service": rec["training_service"]["inference"]["launches"]["fused_decode_step"],
+                       "webui_tts": rec["webui"]["tts"]["launches"]["fused_decode_step"]}
+    return rec
+
+
+def write_mdx_onnx(path: str, seed: int, width: int = 32) -> None:
+    """An MDX-Net stand-in as an ONNX file, from the seed: (B, 4, dim_f,
+    dim_t) -> Conv 3x3 (4 -> width) -> BatchNormalization -> Relu -> Conv 3x3
+    (width -> 4), the ops of the published ConvTDF graphs; width 0 is the
+    Identity graph."""
+    from gpt_sovits_tpu_torch.utils.onnx_lite import Graph, Node, encode_model
+
+    if width == 0:
+        g = Graph(nodes=[Node("Identity", ["input"], ["output"], {})], inputs=["input"], outputs=["output"])
+    else:
+        rng = np.random.default_rng(seed)
+        f32 = lambda *s, scale=1.0: (scale * rng.standard_normal(s)).astype(np.float32)  # noqa: E731
+        init = {"w1": f32(width, 4, 3, 3, scale=(2.0 / 36) ** 0.5), "b1": f32(width, scale=0.1),
+                "gamma": (1.0 + f32(width, scale=0.1)), "beta": f32(width, scale=0.1),
+                "mean": f32(width, scale=0.1), "var": (1.0 + np.abs(f32(width, scale=0.2))),
+                "w2": f32(4, width, 3, 3, scale=(1.0 / (9 * width)) ** 0.5), "b2": f32(4, scale=0.1)}
+        conv = {"kernel_shape": [3, 3], "pads": [1, 1, 1, 1]}
+        g = Graph(nodes=[Node("Conv", ["input", "w1", "b1"], ["h1"], conv),
+                         Node("BatchNormalization", ["h1", "gamma", "beta", "mean", "var"], ["h2"], {"epsilon": 1e-5}),
+                         Node("Relu", ["h2"], ["h3"], {}),
+                         Node("Conv", ["h3", "w2", "b2"], ["output"], conv)],
+                  initializers=init, inputs=["input"], outputs=["output"])
+    with open(path, "wb") as f:
+        f.write(encode_model(g))
+
+
 def kernel_times(seed: int) -> dict:
     """Device ms of K2 (one DiT block's three calls), K4, K5 and K3 at the
     main path's shapes, B = 1 and 4, with body_ms and helper_ms; of K1's
@@ -3249,6 +3706,16 @@ def main(argv=None) -> int:
             rec = phase(str(exp), str(Path(tmp) / name), args.seed)
             emit({"phase": name, "phase_s": time.perf_counter() - t0, **rec, "launches": launches_zero(name)})
             torch.cuda.empty_cache()
+    # the corpus tools (K1-K7 launched 0 times) and the services that drive them (K1 on their synthesis)
+    with tempfile.TemporaryDirectory(prefix="gsv_smoke_corpus_") as tmp:
+        t0 = time.perf_counter()
+        corpus = corpus_phase(Path(tmp) / "corpus", args.seed)
+        emit({"phase": "corpus", "phase_s": time.perf_counter() - t0, **corpus})
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        services = services_phase(Path(tmp) / "services", corpus["paths"], args.seed)
+        emit({"phase": "services", "phase_s": time.perf_counter() - t0, **services})
+        torch.cuda.empty_cache()
     emit({"phase": "grad_refusal", "snake_aa": refuses_a_gradient_on_the_card()})
     emit({"phase": "gemm_tiles", **gemm_tile_phase(args.seed)})
     if args.parent is not None:
@@ -3260,12 +3727,13 @@ def main(argv=None) -> int:
         "name": name, "route": "cuda", "source": KERNEL_SRC, "replaces": REPLACES,
         "launches": launches[name], "launches_zh": launches_zh[name], "launches_v4": launches4[name],
         "launches_v3": launches3[name], "launches_serve": serve_rec["launches"],
-        "launches_cli": cli_rec["launches"][name],
+        "launches_cli": cli_rec["launches"][name], "launches_services": sum(services["launches"].values()),
         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"], "timer": r["timer"],
         "config": "int8 weights + int8 KV, B=1, live 745 of 1024, one launch a 24-layer step; launches over the "
                   "v2 (launches), zh, v4 and v3 paths, over serve_v2's waves (the 8-slot pool, one launch a pool "
-                  "step) and over the cli phase's tts command",
+                  "step), over the cli phase's tts command and over the services phase's two syntheses (the "
+                  "training service's /api/v1/inference and the webui's tts job)",
     }]
     helpers = {"qdense_int8": "row_quant", "qkv_rope_int8": "row_quant", "flash_attn_int8": "v_quant"}
     for name in ("qdense_int8", "qkv_rope_int8", "flash_attn_int8"):

@@ -3,13 +3,19 @@
     python -m gpt_sovits_tpu_torch.cli <subcommand> [options]
 
   slice       cut long recordings at silences        (tools/slicer2.py)
+  separate    UVR5 vocal separation                  (tools/uvr5/)
+  denoise     FRCRN or spectral-gate denoiser        (tools/cmd-denoise.py)
+  asr         transcribe slices -> .list manifest    (tools/asr/)
   prepare     feature extraction stages 1a/1b/1c     (prepare_datasets/)
   train-s1    AR text->semantic training             (s1_train.py)
   train-s2    SoVITS GAN training                    (s2_train.py)
   train-v3    CFM fine-tune (--lora-rank for LoRA)   (s2_train_v3*.py)
   tts         synthesize from the command line       (inference_cli.py)
   serve       HTTP API                               (api_v2.py)
+  webui       control panel over HTTP                (webui.py)
+  serve-training  character training REST service    (server/)
   list-models newest trained weights per version     (get_trained_models.py)
+  download    fetch pretrained checkpoints and assets (download.py)
 
 The subcommands that compute run on the CUDA card unless `--device cpu`
 is given. The model files are the reference project's (utils/loaders.py).
@@ -39,6 +45,48 @@ def cmd_slice(args):
     for i, chunk in enumerate(slicer.slice(wav)):
         save_wav(os.path.join(args.out_dir, f"{base}_{i:04d}.wav"), chunk, sr)
     print(f"wrote {i + 1} slices to {args.out_dir}")
+
+
+def cmd_denoise(args):
+    from gpt_sovits_tpu_torch.corpus.denoise import denoise
+    from gpt_sovits_tpu_torch.dsp.audio_io import load_wav, save_wav
+
+    os.makedirs(args.out_dir, exist_ok=True)
+    names = [f for f in os.listdir(args.in_dir) if f.lower().endswith(".wav")]
+    for name in names:
+        wav, sr = load_wav(os.path.join(args.in_dir, name))
+        save_wav(os.path.join(args.out_dir, name), denoise(wav, sr, args.ckpt, device=args.device), sr)
+    print(f"denoised {len(names)} files -> {args.out_dir}")
+
+
+def cmd_separate(args):
+    """Vocal separation (the uvr5 webui's, tools/uvr5/webui.py:45)."""
+    from gpt_sovits_tpu_torch.corpus.uvr5 import separate_vocals
+    from gpt_sovits_tpu_torch.dsp.audio_io import load_wav, save_wav
+
+    os.makedirs(args.vocal_dir, exist_ok=True)
+    os.makedirs(args.other_dir, exist_ok=True)
+    paths = ([os.path.join(args.in_dir, f) for f in sorted(os.listdir(args.in_dir)) if f.lower().endswith(".wav")]
+             if args.in_dir else [args.input])
+    for path in paths:
+        wav, sr = load_wav(path, mono=False)
+        if wav.ndim == 2:
+            wav = wav.T  # (L, C) -> (C, L)
+        vocals, other = separate_vocals(wav, sr, backend=args.backend, model_path=args.model, config_path=args.config,
+                                        agg=args.agg, device=args.device)
+        base = os.path.splitext(os.path.basename(path))[0]
+        save_wav(os.path.join(args.vocal_dir, f"vocal_{base}.wav"), vocals.T if vocals.ndim == 2 else vocals, sr)
+        save_wav(os.path.join(args.other_dir, f"instrument_{base}.wav"), other.T if other.ndim == 2 else other, sr)
+    print(f"separated {len(paths)} files -> {args.vocal_dir} / {args.other_dir}")
+
+
+def cmd_asr(args):
+    """Transcribe a directory of slices into the training `.list` manifest
+    (tools/asr/; funasr / faster_whisper are optional and imported lazily)."""
+    from gpt_sovits_tpu_torch.corpus.asr import transcribe_dir
+
+    out = transcribe_dir(args.in_dir, args.output, language=args.language, speaker=args.speaker)
+    print(f"wrote manifest: {out}")
 
 
 def cmd_prepare(args):
@@ -133,6 +181,66 @@ def cmd_serve(args):
             service.continuous.close()
 
 
+def cmd_webui(args):
+    """The control panel (reference webui.py, port 9874): data tools, dataset
+    preparation, training, label proofreading, as logged background jobs."""
+    from gpt_sovits_tpu_torch.serve.webui import serve_webui
+
+    server = serve_webui(host=args.host, port=args.port)
+    print(f"webui on http://{args.host}:{server.server_address[1]}", flush=True)
+    try:
+        _forever()
+    except KeyboardInterrupt:
+        server.shutdown()
+
+
+def service_config(args):
+    """The `serve-training` subcommand's ServiceConfig: the GSVT_* settings,
+    then the flags given."""
+    from gpt_sovits_tpu_torch.serve.training_steps import ServiceConfig
+
+    cfg = ServiceConfig()
+    for name in ("root", "host", "port", "version", "bert_path", "hubert_path", "sv_path", "pretrained_s2g",
+                 "pretrained_s2d", "pretrained_s1", "device"):
+        v = getattr(args, name, None)
+        if v is not None:
+            setattr(cfg, name, v)
+    return cfg
+
+
+def cmd_serve_training(args):
+    """The character-based training REST service with the production steps
+    (reference server/start_service.sh)."""
+    from gpt_sovits_tpu_torch.serve.training_steps import main as run_service
+
+    run_service(service_config(args))
+
+
+def cmd_download(args):
+    """Fetch pretrained assets (install.sh's model fetching and the
+    reference's on-demand G2PWModel / UVR5 / funasr downloads)."""
+    from gpt_sovits_tpu_torch.utils import download as dl
+
+    did = False
+    if args.models:
+        dl.download_all(args.dest, names=args.names or None)
+        did = True
+    if args.g2pw:
+        print(dl.download_g2pw(args.dest))
+        did = True
+    if args.uvr5:
+        print(dl.download_uvr5(os.path.join(args.dest, "uvr5_weights")))
+        did = True
+    if args.asr:
+        print(dl.download_asr(os.path.join(args.dest, "asr_models"), languages=tuple(args.asr)))
+        did = True
+    if args.frcrn:
+        print(dl.download_frcrn(args.dest))
+        did = True
+    if not did:
+        dl.download_all(args.dest)
+
+
 def cmd_list_models(args):
     """Trained weights per version directory as JSON (get_trained_models.py)."""
     import json
@@ -172,6 +280,33 @@ def parser() -> argparse.ArgumentParser:
     s.add_argument("--hop-size", type=int, default=10)
     s.add_argument("--max-sil-kept", type=int, default=500)
     s.set_defaults(fn=cmd_slice)
+
+    s = sub.add_parser("denoise")
+    s.add_argument("--in-dir", required=True)
+    s.add_argument("--out-dir", required=True)
+    s.add_argument("--ckpt", default=None, help="FRCRN pytorch_model.bin (default: $GSVT_FRCRN_CKPT, else spectral gate)")
+    _device(s)
+    s.set_defaults(fn=cmd_denoise)
+
+    s = sub.add_parser("separate", help="UVR5 vocal separation (roformer/vr/mdx/hpss)")
+    g = s.add_mutually_exclusive_group(required=True)
+    g.add_argument("--input")
+    g.add_argument("--in-dir")
+    s.add_argument("--vocal-dir", required=True)
+    s.add_argument("--other-dir", required=True)
+    s.add_argument("--model", help="UVR5 weight file (.ckpt/.pth/.onnx); omit for HPSS fallback")
+    s.add_argument("--config", help="roformer YAML (optional)")
+    s.add_argument("--backend", default="auto", choices=["auto", "roformer", "vr", "mdx", "hpss"])
+    s.add_argument("--agg", type=int, default=10, help="VR aggressiveness 0-100")
+    _device(s)
+    s.set_defaults(fn=cmd_separate)
+
+    s = sub.add_parser("asr", help="transcribe slices into the training .list manifest (tools/asr)")
+    s.add_argument("--in-dir", required=True)
+    s.add_argument("--output", required=True, help="path of the .list manifest to write")
+    s.add_argument("--language", default="zh")
+    s.add_argument("--speaker", default="speaker")
+    s.set_defaults(fn=cmd_asr)
 
     s = sub.add_parser("prepare")
     s.add_argument("--list", required=True)
@@ -249,6 +384,35 @@ def parser() -> argparse.ArgumentParser:
                    help="S1 KV-cache quantization (default: int8 on a card)")
     _device(s)
     s.set_defaults(fn=cmd_serve)
+
+    s = sub.add_parser("webui", help="master control panel (webui.py equivalent)")
+    s.add_argument("--host", default="127.0.0.1")
+    s.add_argument("--port", type=int, default=9874)
+    s.set_defaults(fn=cmd_webui)
+
+    s = sub.add_parser("serve-training", help="character-based training REST service (server/)")
+    s.add_argument("--root", help="character data root (default: GSVT_SERVICE_ROOT or ./characters)")
+    s.add_argument("--host")
+    s.add_argument("--port", type=int)
+    s.add_argument("--version")
+    s.add_argument("--bert-path")
+    s.add_argument("--hubert-path")
+    s.add_argument("--sv-path")
+    s.add_argument("--pretrained-s2g")
+    s.add_argument("--pretrained-s2d")
+    s.add_argument("--pretrained-s1")
+    _device(s)
+    s.set_defaults(fn=cmd_serve_training)
+
+    s = sub.add_parser("download", help="fetch pretrained checkpoints / G2PWModel / UVR5 / ASR assets")
+    s.add_argument("--dest", default="pretrained_models")
+    s.add_argument("--models", action="store_true", help="core checkpoints (default when no flag given)")
+    s.add_argument("--names", nargs="*", help="subset of asset names (see utils/download.PRETRAINED)")
+    s.add_argument("--g2pw", action="store_true", help="G2PWModel bundle for zh polyphone g2p")
+    s.add_argument("--uvr5", action="store_true", help="UVR5 separation weights bundle")
+    s.add_argument("--asr", nargs="*", metavar="LANG", help="prefetch funasr models (e.g. --asr zh)")
+    s.add_argument("--frcrn", action="store_true", help="FRCRN denoiser checkpoint (cli denoise --ckpt)")
+    s.set_defaults(fn=cmd_download)
 
     s = sub.add_parser("list-models", help="newest trained GPT/SoVITS weights per version (get_trained_models.py)")
     s.add_argument("--root", default=".", help="directory holding GPT_weights*/SoVITS_weights* dirs")

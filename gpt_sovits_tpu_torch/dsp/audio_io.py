@@ -75,20 +75,23 @@ def _ffmpeg_load(path: str, sr: int | None) -> tuple[np.ndarray, int]:
     return np.frombuffer(proc.stdout, dtype=np.float32).copy(), out_sr
 
 
-def load_wav(path: str, sr: int | None = None) -> tuple[np.ndarray, int]:
-    """Load audio as mono float32 in [-1, 1]; optionally resample to `sr`."""
+def load_wav(path: str, sr: int | None = None, *, mono: bool = True) -> tuple[np.ndarray, int]:
+    """Load audio as float32 in [-1, 1]; optionally resample to `sr`.
+    mono=False keeps a multichannel file's (L, C) (the separators want both
+    channels)."""
     ext = os.path.splitext(path)[1].lower()
     if ext == ".wav":
         with open(path, "rb") as f:
             x, file_sr = _parse_wav(f.read())
-        if x.ndim == 2:
+        if mono and x.ndim == 2:
             x = x.mean(axis=1)
     elif shutil.which("ffmpeg"):
         return _ffmpeg_load(path, sr)
     else:
         raise ValueError(f"cannot load {ext} without ffmpeg; provide a .wav")
     if sr is not None and sr != file_sr:
-        x = resample(x, file_sr, sr)
+        x = resample(x.T if x.ndim == 2 else x, file_sr, sr)
+        x = x.T if x.ndim == 2 else x
         file_sr = sr
     return x, file_sr
 
@@ -103,11 +106,14 @@ def resample(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
 
 
 def save_wav(path: str, x: np.ndarray, sr: int) -> None:
-    """Mono 16-bit PCM WAV (the prepared corpus's `5-wav32k` format)."""
-    pcm = np.clip(np.round(np.asarray(x, np.float32).reshape(-1) * 32768.0), -32768, 32767).astype("<i2").tobytes()
+    """16-bit PCM WAV: (L,) mono (the prepared corpus's `5-wav32k` format)
+    or (L, C) interleaved channels."""
+    x = np.asarray(x, np.float32)
+    n_ch = 1 if x.ndim == 1 else x.shape[1]
+    pcm = np.clip(np.round(x.reshape(-1) * 32768.0), -32768, 32767).astype("<i2").tobytes()
     header = (
         b"RIFF" + struct.pack("<I", 36 + len(pcm)) + b"WAVEfmt "
-        + struct.pack("<IHHIIHH", 16, 1, 1, sr, sr * 2, 2, 16) + b"data" + struct.pack("<I", len(pcm))
+        + struct.pack("<IHHIIHH", 16, 1, n_ch, sr, sr * 2 * n_ch, 2 * n_ch, 16) + b"data" + struct.pack("<I", len(pcm))
     )
     with open(path, "wb") as f:
         f.write(header + pcm)

@@ -493,3 +493,76 @@ def bert_from_jax(params: dict, cfg) -> dict:
         _dense(lp["output"], f"{pre}.output.dense", out)
         _ln(lp["out_norm"], f"{pre}.output.LayerNorm", out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Corpus tools: FRCRN (denoiser), BS/Mel-Band RoFormer (vocal separation)
+# ---------------------------------------------------------------------------
+
+
+def frcrn_from_jax(variables: dict) -> dict:
+    """{"params", "batch_stats"} of gpt_sovits_tpu/models/frcrn.py -> the
+    checkpoint's names (the inverse of that module's `params_from_torch`):
+    kernel -> weight (convolutions (kf, kt, in, out) and transposed ones
+    (kf, kt, out, in) both to torch's order by (3, 2, 0, 1), the FSMN
+    memory (K, 1, C) -> (C, 1, K), dense kernels transposed), BatchNorm
+    scale -> weight, mean/var -> running_mean/running_var."""
+    out = {}
+
+    def walk(tree, prefix, stats):
+        for k, v in tree.items():
+            path = f"{prefix}.{k}" if prefix else k
+            if isinstance(v, dict):
+                walk(v, path, stats)
+                continue
+            a = np.asarray(v, np.float32)
+            if stats:
+                name = path.replace(".mean", ".running_mean").replace(".var", ".running_var")
+            else:
+                name = path.replace(".kernel", ".weight").replace(".scale", ".weight")
+                if "_mem." in path:
+                    a = a.transpose(2, 1, 0)
+                elif a.ndim == 4:
+                    a = a.transpose(3, 2, 0, 1)
+                elif a.ndim == 2:
+                    a = a.T
+            out[name] = _t(a)
+
+    walk(variables["params"], "", False)
+    walk(variables.get("batch_stats", {}), "", True)
+    return out
+
+
+def roformer_from_jax(params: dict, cfg) -> dict:
+    """The flax tree of gpt_sovits_tpu/corpus/roformer.py (its "params") ->
+    the reference BSRoformer / MelBandRoformer names (the inverse of that
+    module's `params_from_torch`)."""
+    out = {}
+    n_bands = len(cfg.band_dims())
+    for i in range(n_bands):
+        out[f"band_split.to_features.{i}.0.gamma"] = _t(params["band_split"][f"norm_{i}"]["gamma"])
+        _dense(params["band_split"][f"proj_{i}"], f"band_split.to_features.{i}.1", out)
+    n_linear = 1 if cfg.linear_transformer_depth else 0
+    for i in range(cfg.depth):
+        for kind, depth, mod_idx in (("time", cfg.time_transformer_depth, n_linear),
+                                     ("freq", cfg.freq_transformer_depth, n_linear + 1)):
+            tr, base = params[f"{kind}_{i}"], f"layers.{i}.{mod_idx}"
+            for j in range(depth):
+                pre, a, f = f"{base}.layers.{j}", tr[f"attn_{j}"], tr[f"ff_{j}"]
+                out[f"{pre}.0.norm.gamma"] = _t(a["norm"]["gamma"])
+                _dense(a["to_qkv"], f"{pre}.0.to_qkv", out)
+                _dense(a["to_gates"], f"{pre}.0.to_gates", out)
+                _dense(a["to_out"], f"{pre}.0.to_out.0", out)
+                out[f"{pre}.1.net.0.gamma"] = _t(f["norm"]["gamma"])
+                _dense(f["fc1"], f"{pre}.1.net.1", out)
+                _dense(f["fc2"], f"{pre}.1.net.4", out)
+            if "norm" in tr:
+                out[f"{base}.norm.gamma"] = _t(tr["norm"]["gamma"])
+    if "final_norm" in params:
+        out["final_norm.gamma"] = _t(params["final_norm"]["gamma"])
+    n_hidden = cfg.mask_estimator_depth - (1 if cfg.kind == "bs" else 0)
+    for n in range(cfg.num_stems):
+        for i in range(n_bands):
+            for j in range(n_hidden + 1):
+                _dense(params[f"mask_{n}"][f"band{i}_fc{j}"], f"mask_estimators.{n}.to_freqs.{i}.0.{2 * j}", out)
+    return out

@@ -1,6 +1,8 @@
 """The port's command line (gpt_sovits_tpu_torch/cli.py) on the CPU: the help
-of every subcommand and none for the ones not ported; `slice` and
-`list-models` against the JAX package's cli; the `prepare` and `train-*`
+of every subcommand and none for the one not ported (`export`); `slice`,
+`list-models`, `denoise`, `separate` and `asr` (a stub funasr) against the
+JAX package's cli; `download` without the network; the `webui` and
+`serve-training` wiring; the `prepare` and `train-*`
 wiring against JAX's, with the drivers patched to record their arguments;
 `tts` and `serve` (`--device cpu`) on a tiny v2ProPlus pipeline that a
 patched `build_pipeline` returns; TTSService's weight hook swapping S1
@@ -37,8 +39,10 @@ from test_torch_pipeline import HUB, INFER, MEL, S1, S2, SV
 torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
-SUBCOMMANDS = ("slice", "prepare", "train-s1", "train-s2", "train-v3", "tts", "serve", "list-models")
-NOT_PORTED = ("asr", "denoise", "separate", "download", "export", "webui", "serve-training")
+SUBCOMMANDS = ("slice", "prepare", "train-s1", "train-s2", "train-v3", "tts", "serve", "list-models", "denoise",
+               "separate", "asr", "webui", "serve-training", "download")
+NO_DEVICE = ("slice", "list-models", "asr", "webui", "download")  # the subcommands that run no model
+NOT_PORTED = ("export",)
 S1_CLI = dict(S1, max_len=4096)  # the serving pool's cache: tx 512 + prompt 512 + 750 new tokens
 TEXT = "Hello world this is the first segment. And here comes the second one!"
 
@@ -97,8 +101,7 @@ def test_help_of_every_subcommand(cmd, capsys):
     assert e.value.code == 0
     out = capsys.readouterr().out
     assert out.startswith("usage:") and cmd in out
-    computes = cmd not in ("slice", "list-models")
-    assert ("--device" in out) == computes, cmd
+    assert ("--device" in out) == (cmd not in NO_DEVICE), cmd
 
 
 def test_subcommands_not_ported_are_not_listed(capsys):
@@ -280,3 +283,122 @@ def test_weight_hook_swaps_s1_through_load_s1(tmp_path):
         assert torch.equal(pipe.s1.state_dict()[k], v.half().float()), k
     code, _, _ = api.TTSService(pipe).set_weights("gpt", path)
     assert code == 400
+
+
+# ---------------------------------------------------------------------------
+# the corpus tools and the services
+# ---------------------------------------------------------------------------
+
+
+def _corpus_wavs(d: Path, stereo: bool = False) -> None:
+    d.mkdir()
+    rng = np.random.default_rng(5)
+    for i in range(2):
+        t = np.arange(12000) / 16000
+        wav = (0.4 * np.sin(2 * np.pi * (200 + 50 * i) * t) + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+        save_wav(str(d / f"u{i}.wav"), np.stack([wav, 0.7 * wav], axis=1) if stereo else wav, 16000)
+
+
+def _same_files(a: Path, b: Path) -> None:
+    fa, fb = sorted(p.name for p in a.iterdir()), sorted(p.name for p in b.iterdir())
+    assert fa == fb and fa
+    for n in fa:
+        assert (a / n).read_bytes() == (b / n).read_bytes(), n
+
+
+def test_denoise_and_separate_equal_jax(tmp_path, capsys, monkeypatch):
+    monkeypatch.delenv("GSVT_FRCRN_CKPT", raising=False)
+    _corpus_wavs(tmp_path / "in")
+    for name, main in (("port", cli.main), ("jax", jcli.main)):
+        dev = ["--device", "cpu"] if name == "port" else []
+        main(["denoise", "--in-dir", str(tmp_path / "in"), "--out-dir", str(tmp_path / name / "den"), *dev])
+        main(["separate", "--in-dir", str(tmp_path / "in"), "--vocal-dir", str(tmp_path / name / "voc"),
+              "--other-dir", str(tmp_path / name / "inst"), *dev])
+    for sub in ("den", "voc", "inst"):
+        _same_files(tmp_path / "port" / sub, tmp_path / "jax" / sub)
+    out = capsys.readouterr().out.replace(str(tmp_path / "port"), "X").replace(str(tmp_path / "jax"), "X")
+    half = out.splitlines()
+    assert half[:2] == half[2:4] and half[0] == "denoised 2 files -> X/den"
+
+
+def test_separate_routes_a_model_file_to_its_family_on_the_device(tmp_path, monkeypatch):
+    from gpt_sovits_tpu_torch.corpus import roformer
+
+    seen = []
+    monkeypatch.setattr(roformer, "separate",
+                        lambda wav, sr, path, config_path=None, device=None: seen.append((wav.shape, path, device))
+                        or (wav, wav))
+    _corpus_wavs(tmp_path / "in", stereo=True)
+    cli.main(["separate", "--input", str(tmp_path / "in" / "u0.wav"), "--vocal-dir", str(tmp_path / "v"),
+              "--other-dir", str(tmp_path / "o"), "--model", "x/model_bs_roformer_ep_1.ckpt"])
+    assert seen == [((2, 12000), "x/model_bs_roformer_ep_1.ckpt", None)]  # None: the card
+    assert (tmp_path / "v" / "vocal_u0.wav").exists() and (tmp_path / "o" / "instrument_u0.wav").exists()
+
+
+def test_asr_with_a_stub_equals_jax(tmp_path, monkeypatch, capsys):
+    import types
+
+    fun = types.ModuleType("funasr")
+    fun.AutoModel = type("M", (), {"__init__": lambda s, **kw: None,
+                                   "generate": lambda s, input: [{"text": "said " + Path(input).stem}]})
+    monkeypatch.setitem(sys.modules, "funasr", fun)
+    _corpus_wavs(tmp_path / "in")
+    for name, main in (("port", cli.main), ("jax", jcli.main)):
+        main(["asr", "--in-dir", str(tmp_path / "in"), "--output", str(tmp_path / f"{name}.list"), "--speaker", "spk"])
+    assert (tmp_path / "port.list").read_text(encoding="utf-8") == (tmp_path / "jax.list").read_text(encoding="utf-8")
+    assert (tmp_path / "port.list").read_text(encoding="utf-8").splitlines()[0].endswith("|spk|ZH|said u0")
+
+
+@pytest.mark.parametrize("argv", [["--models", "--names", "s1", "hubert"], ["--models"], ["--g2pw"], ["--uvr5"],
+                                  ["--frcrn"], []])
+def test_download_without_the_network(tmp_path, monkeypatch, capsys, argv):
+    """Every asset is there already: each flag returns its path and fetches
+    nothing (urllib made to raise)."""
+    from gpt_sovits_tpu_torch.utils import download as dl
+
+    def refuse(*a, **k):
+        raise AssertionError("no network")
+
+    monkeypatch.setattr(urllib.request, "urlretrieve", refuse)
+    monkeypatch.setattr(urllib.request, "urlopen", refuse)
+    for rel in dl.PRETRAINED.values():
+        (tmp_path / rel).parent.mkdir(parents=True, exist_ok=True)
+        (tmp_path / rel).write_bytes(b"x")
+    (tmp_path / "G2PWModel_1.1").mkdir()
+    (tmp_path / "uvr5_weights" / "uvr5_weights").mkdir(parents=True)
+    (tmp_path / "speech_frcrn_ans_cirm_16k.bin").write_bytes(b"x")
+    cli.main(["download", "--dest", str(tmp_path), *argv])
+    out = capsys.readouterr().out
+    if argv[:1] == ["--g2pw"]:
+        assert out.splitlines()[-1] == str(tmp_path / "G2PWModel_1.1")
+    if argv[:1] == ["--uvr5"]:
+        assert out.splitlines()[-1] == str(tmp_path / "uvr5_weights" / "uvr5_weights")
+    if argv[:1] == ["--frcrn"]:
+        assert out.splitlines()[-1] == str(tmp_path / "speech_frcrn_ans_cirm_16k.bin")
+
+
+def test_webui_and_serve_training_wiring(monkeypatch, tmp_path):
+    from gpt_sovits_tpu_torch.serve import training_steps, webui
+
+    served = {}
+
+    class Srv:
+        server_address = ("127.0.0.1", 1234)
+
+        def shutdown(self):
+            served["shutdown"] = True
+
+    def forever():
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(webui, "serve_webui", lambda host, port: served.setdefault("webui", (host, port)) and Srv())
+    monkeypatch.setattr(cli, "_forever", forever)
+    cli.main(["webui", "--port", "0"])
+    assert served == {"webui": ("127.0.0.1", 0), "shutdown": True}
+    monkeypatch.setattr(training_steps, "main", lambda cfg: served.setdefault("cfg", cfg))
+    monkeypatch.setenv("GSVT_S1_EPOCHS", "3")
+    cli.main(["serve-training", "--root", str(tmp_path), "--port", "0", "--version", "v2ProPlus", "--sv-path", "sv",
+              "--device", "cpu"])
+    cfg = served["cfg"]
+    assert (cfg.root, cfg.port, cfg.version, cfg.sv_path, cfg.device, cfg.s1_epochs) == \
+        (str(tmp_path), 0, "v2ProPlus", "sv", "cpu", 3)

@@ -1,6 +1,8 @@
 """The PyTorch port, chip_smoke.py and broken_copies.py stand alone: they
 import with jax, flax, optax, orbax and transformers blocked, and no file of
-theirs imports any of them or the JAX package."""
+theirs imports any of them or the JAX package. The optional packages of the
+corpus tools (funasr, faster_whisper, modelscope, yaml) are imported only
+inside the functions that use them."""
 
 import ast
 import os
@@ -46,7 +48,9 @@ def test_imports_with_jax_blocked():
                 "utils.onnx_lite", "run", "train.optim", "train.scaled_adam", "train.s1_train", "train.s2_train",
                 "train.data", "train.ckpt", "models.discriminators", "train.s2_train_v3", "train.bigvgan_train",
                 "parallel.launch", "parallel.sync", "native", "utils.checkpoint_compat", "utils.safetensors",
-                "utils.loaders", "prepare.extract", "dsp.slicer", "cli"):
+                "utils.loaders", "prepare.extract", "dsp.slicer", "cli", "dsp.stft", "models.frcrn", "corpus.denoise",
+                "corpus.roformer", "corpus.vr", "corpus.mdx", "corpus.uvr5", "corpus.asr", "utils.i18n",
+                "serve.training_service", "serve.training_steps", "serve.webui", "utils.download"):
         assert f"gpt_sovits_tpu_torch.{mod}" in res.stdout, mod
 
 
@@ -64,3 +68,32 @@ def test_no_banned_imports_in_source():
             for n in names:
                 assert n.split(".")[0] not in BANNED, f"{path}: imports {n}"
         assert "gpt_sovits_tpu." not in path.read_text(), f"{path} names the JAX package"
+
+
+OPTIONAL = ("funasr", "faster_whisper", "modelscope", "yaml")
+
+
+def _import_time_imports(node):
+    """The imports a module runs when it is imported: not inside a function."""
+    for child in ast.iter_child_nodes(node):
+        if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        if isinstance(child, ast.Import):
+            yield from (a.name for a in child.names)
+        elif isinstance(child, ast.ImportFrom):
+            yield child.module or ""
+        else:
+            yield from _import_time_imports(child)
+
+
+def test_optional_packages_are_imported_only_inside_functions():
+    seen = set()
+    for path in FILES:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for n in _import_time_imports(tree):
+            assert n.split(".")[0] not in OPTIONAL, f"{path}: imports {n} at import time"
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                for n in ([a.name for a in node.names] if isinstance(node, ast.Import) else [node.module or ""]):
+                    seen.add(n.split(".")[0])
+    assert set(OPTIONAL) <= seen  # each is used somewhere, lazily

@@ -40,7 +40,7 @@ def test_wav_batch_matches_python(lib, tmp_path):
 
 
 def _stereo_wav(path, x, sr):
-    """16-bit PCM with two interleaved channels (the port's save_wav writes mono)."""
+    """16-bit PCM with two interleaved channels, written here apart from the port's save_wav."""
     pcm = np.clip(np.round(x.reshape(-1) * 32768.0), -32768, 32767).astype("<i2").tobytes()
     with open(path, "wb") as f:
         f.write(b"RIFF" + struct.pack("<I", 36 + len(pcm)) + b"WAVEfmt "
