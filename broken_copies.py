@@ -6,9 +6,11 @@ in the continuous-batching pool that drives K1 (`infer/continuous.py`), in
 the pipeline's zh BERT features (`infer/pipeline.py`), in the corpus tools
 (the RoFormer's rotary in `corpus/roformer.py`, FRCRN's masks in
 `models/frcrn.py`), in the training BigVGAN's activations (`models/bigvgan.py` with K6's gradient refusal
-removed), in the reference-checkpoint loaders (`utils/loaders.py`) or in
-the reference-format export (`train/ckpt.py`), each of which must fail
-chip_smoke.py's check of that kernel or path on the card.
+removed), in the reference-checkpoint loaders (`utils/loaders.py`), in
+the reference-format export (`train/ckpt.py`) or in the export path (the
+functional S1 step of `models/t2s.py`, the ONNX converter of
+`utils/onnx_export.py`), each of which must fail chip_smoke.py's check of
+that kernel or path on the card.
 
     python3 broken_copies.py        # one CUDA card; exits non-zero if a copy passes its check
 
@@ -17,7 +19,8 @@ directory outside the checkout, with one line of one source replaced (or,
 where a fault needs it, one line in each of several sources); its checks
 (chip_smoke.k1_case, k1_rows_case, snake_case, k3_case, k4_case, k5_case
 or gemm_case at a main-path shape, k1_sweep_case, serve_case,
-path_zh_case, train_bigvgan_case, cli_case, roformer_case, frcrn_case) run
+path_zh_case, train_bigvgan_case, cli_case, roformer_case, frcrn_case,
+export_case) run
 in a child process there, which builds the copy's kernels. The same checks run first on the unbroken
 sources and must pass. One JSON line per copy and check: the check's
 outcome and the end of its assertion message.
@@ -47,6 +50,8 @@ LOADERS = "gpt_sovits_tpu_torch/utils/loaders.py"
 ROFORMER = "gpt_sovits_tpu_torch/corpus/roformer.py"
 FRCRN = "gpt_sovits_tpu_torch/models/frcrn.py"
 CKPT = "gpt_sovits_tpu_torch/train/ckpt.py"
+T2S = "gpt_sovits_tpu_torch/models/t2s.py"
+ONNX_EXPORT = "gpt_sovits_tpu_torch/utils/onnx_export.py"
 CHECKS = {
     # K1's whole step at full width, random and peaked inputs (step_cases)
     "k1_int8": "c.k1_case('int8', 1, g)",
@@ -88,6 +93,9 @@ CHECKS = {
     # complex-number rotary formulation; FRCRN's output against its masks composed from its two U-Nets
     "roformer_rotary": "c.roformer_case(g)",
     "frcrn_masks": "c.frcrn_case(g)",
+    # the exporters on seeded full-width models: the S1 step as pt2 and ONNX (its returned caches hold the fresh
+    # K/V at the slot) and the v2ProPlus S2 decode as ONNX, each against the eager module on the card
+    "export": "c.export_case(g)",
 }
 # (name, source, the line as it is, the broken line, checks that must fail); a fault
 # that needs lines in several sources gives a tuple of each
@@ -170,6 +178,12 @@ COPIES = [
      "    return torch.cat((-x[..., x.shape[-1] // 2:], x[..., : x.shape[-1] // 2]), dim=-1)", ("roformer_rotary",)),
     ("FRCRN: the second mask without its tanh", FRCRN, "        m2 = torch.tanh(self.unet2(u1)) + m1",
      "        m2 = self.unet2(u1) + m1", ("frcrn_masks",)),
+    ("exported S1 step: the input caches returned unwritten", T2S,
+     "        return self.ar_predict_layer(x[:, 0]), torch.stack(new_ks), torch.stack(new_vs)",
+     "        return self.ar_predict_layer(x[:, 0]), k_caches, v_caches", ("export",)),
+    ("ONNX: the transposed convolution's kernel flipped in time (the JAX lowering's flip carried over)", ONNX_EXPORT,
+     "    w = ins[1]  # torch's (in, out/g, k) kernel is ConvTranspose's as it is: no flip",
+     "    w = cv.flip(ins[1], range(2, 2 + spatial), _meta(node.args[1]).shape)", ("export",)),
 ]
 
 

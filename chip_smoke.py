@@ -116,7 +116,19 @@ step; the webui over HTTP: separate (the BS-RoFormer file), slice, denoise
 (FRCRN), prepare and tts jobs, each done, tts one K1 launch an S1 step;
 each step's seconds); grad_refusal (K6's wrapper on the card refuses an input that
 requires a gradient, before its launch); gemm_tiles (the s8 GEMM alone at each tile width, K2/K4's and K3's,
-beside gemm_plan's choice); with --parent, compare_trees (K2, K4, K5, K3,
+beside gemm_plan's choice); export (`python -m gpt_sovits_tpu_torch.cli
+export` on the cli phase's files and on seeded v4 S2 / vocoder and v3
+BigVGAN files, pt2 and ONNX, each run a child process, all six at once, in
+which K1-K7 are launched 0 times and no kernel library is loaded; each
+artifact loaded on the card and held against the eager module's plain
+composition on seeded inputs, pt2 within 1e-5 of each output's scale,
+ONNX on utils/onnx_lite.py's executor within the JAX ONNX tests' bars;
+the S1 step's caches written at its slot only; sizes, export and load
+seconds; exporting BigVGAN(use_kernel=True) raises K6's refusal); tp (the
+tensor-parallel rule's sharded tensors and a rank's bytes at 2 and 4 model
+ranks over the full-width S1, v2ProPlus S2, v4 and BigVGAN; S1's
+full-width forward under shard_params on a one-process NCCL (1, 1) mesh
+against the plain one); with --parent, compare_trees (K2, K4, K5, K3,
 K1's step and K6 for one BigVGAN call timed on the earlier tree's kernels
 and on this tree's, in turns);
 then the `kernels` summary line, the card's name and power limit, and last
@@ -2324,81 +2336,80 @@ def _serve_subprocess(model_argv: list, ref: str, seed: int) -> dict:
         proc.wait(timeout=60)
 
 
-def cli_phase(seed: int) -> dict:
+def cli_phase(seed: int, d: Path) -> tuple[dict, dict]:
     """The command line on reference-format files (write_reference_files):
     the loaders' tensors checked; `tts` in this process on a zh text (an
     int16 WAV of its S1 tokens' length, one K1 launch an S1 step, the
     loaded pipeline's modules checked, greedy tokens against an in-memory
     pipeline on the same weights); `prepare` of a zh/en manifest on the
     card and with --device cpu, compared file for file; `serve --continuous`
-    as a child process answering POST /tts."""
+    as a child process answering POST /tts. The files stay in `d` (the
+    export phase reads them). -> (record, write_reference_files' files)."""
     from gpt_sovits_tpu_torch import cli
     from gpt_sovits_tpu_torch.serve.api import wav_bytes
 
     rec: dict = {}
-    with tempfile.TemporaryDirectory(prefix="gsv_smoke_cli_") as tmp:
-        d = Path(tmp)
-        t0 = time.perf_counter()
-        files = write_reference_files(d / "models", seed)
-        rec["write_s"] = time.perf_counter() - t0
-        mods, rec["loader_s"] = load_reference_files(files)
-        rec["tensors"] = check_modules(mods, files)
-        del mods
-        p = files["paths"]
-        model_argv = ["--s1", p["s1"], "--s2", p["s2"], "--hubert", p["hubert"], "--bert", p["bert"], "--sv", p["sv"]]
-        ref = d / "ref.wav"
-        ref.write_bytes(wav_bytes((reference_wav(seed) * 32767).astype(np.int16), 32000))
-        out = d / "tts.wav"
-        t0 = time.perf_counter()
-        reset_all_launch_counts()
-        with counted_steps() as steps:
-            res = cli.main(["tts", "--text", CLI_TEXT, "--lang", "zh", "--ref-audio", str(ref), "--ref-text", ZH_REF_TEXT,
-                            "--ref-lang", "zh", "--output", str(out), "--seed", str(seed), *model_argv,
-                            "--device", "cuda"])
-        launches = all_launch_counts()  # counted from 0 just before the tts command
-        rec["tts_command_s"] = time.perf_counter() - t0
-        launches.update(check_s1_launches(launches, steps.n))
-        assert all(v == 0 for k, v in launches.items() if k not in ("fused_decode_step", "s1_steps")), launches
-        pipe = res["pipeline"]
-        sr, samples = _wav_pcm16(out)
-        hop_up = int(np.prod(pipe.s2.cfg.upsample_rates))
-        n_seg = len(pipe.last_tokens)
-        expect = sum(n * 2 * hop_up for n in pipe.last_tokens.values()) + (n_seg - 1) * int(sr * pipe.cfg.fragment_interval)
-        assert sr == res["sr"] == 32000 and samples.shape == (expect,), (sr, samples.shape, expect)
-        assert np.array_equal(samples, res["audio"]) and np.isfinite(samples.astype(np.float32)).all()
-        rec["tts"] = {"segments": n_seg, "tokens": list(pipe.last_tokens.values()), "audio_s": len(samples) / sr,
-                      "wall_s": res["wall_s"], "rtf": res["wall_s"] / (len(samples) / sr), "phases_s": pipe.last_timing}
-        rec["launches"] = launches
-        check_modules({"s1": pipe.s1, "s2": pipe.s2, "hubert": pipe.hubert, "bert": pipe.bert, "sv": pipe.sv}, files)
-        greedy = []
-        for p_ in (pipe, memory_pipeline(files)):
-            p_.set_ref_audio(str(ref), ref_text=ZH_REF_TEXT, ref_lang="zh")
-            with recorded_tokens() as rt:
-                p_.run(CLI_TEXT, "zh", seed=seed, top_k=1, max_sec=MAX_SEC)
-            greedy.append(np.concatenate(rt.seqs))
-        rec["greedy_agreement"] = agreement(*greedy)
-        assert rec["greedy_agreement"] >= 0.9, rec["greedy_agreement"]
-        del pipe, res, greedy
-        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    files = write_reference_files(d / "models", seed)
+    rec["write_s"] = time.perf_counter() - t0
+    mods, rec["loader_s"] = load_reference_files(files)
+    rec["tensors"] = check_modules(mods, files)
+    del mods
+    p = files["paths"]
+    model_argv = ["--s1", p["s1"], "--s2", p["s2"], "--hubert", p["hubert"], "--bert", p["bert"], "--sv", p["sv"]]
+    ref = d / "ref.wav"
+    ref.write_bytes(wav_bytes((reference_wav(seed) * 32767).astype(np.int16), 32000))
+    out = d / "tts.wav"
+    t0 = time.perf_counter()
+    reset_all_launch_counts()
+    with counted_steps() as steps:
+        res = cli.main(["tts", "--text", CLI_TEXT, "--lang", "zh", "--ref-audio", str(ref), "--ref-text", ZH_REF_TEXT,
+                        "--ref-lang", "zh", "--output", str(out), "--seed", str(seed), *model_argv,
+                        "--device", "cuda"])
+    launches = all_launch_counts()  # counted from 0 just before the tts command
+    rec["tts_command_s"] = time.perf_counter() - t0
+    launches.update(check_s1_launches(launches, steps.n))
+    assert all(v == 0 for k, v in launches.items() if k not in ("fused_decode_step", "s1_steps")), launches
+    pipe = res["pipeline"]
+    sr, samples = _wav_pcm16(out)
+    hop_up = int(np.prod(pipe.s2.cfg.upsample_rates))
+    n_seg = len(pipe.last_tokens)
+    expect = sum(n * 2 * hop_up for n in pipe.last_tokens.values()) + (n_seg - 1) * int(sr * pipe.cfg.fragment_interval)
+    assert sr == res["sr"] == 32000 and samples.shape == (expect,), (sr, samples.shape, expect)
+    assert np.array_equal(samples, res["audio"]) and np.isfinite(samples.astype(np.float32)).all()
+    rec["tts"] = {"segments": n_seg, "tokens": list(pipe.last_tokens.values()), "audio_s": len(samples) / sr,
+                  "wall_s": res["wall_s"], "rtf": res["wall_s"] / (len(samples) / sr), "phases_s": pipe.last_timing}
+    rec["launches"] = launches
+    check_modules({"s1": pipe.s1, "s2": pipe.s2, "hubert": pipe.hubert, "bert": pipe.bert, "sv": pipe.sv}, files)
+    greedy = []
+    for p_ in (pipe, memory_pipeline(files)):
+        p_.set_ref_audio(str(ref), ref_text=ZH_REF_TEXT, ref_lang="zh")
+        with recorded_tokens() as rt:
+            p_.run(CLI_TEXT, "zh", seed=seed, top_k=1, max_sec=MAX_SEC)
+        greedy.append(np.concatenate(rt.seqs))
+    rec["greedy_agreement"] = agreement(*greedy)
+    assert rec["greedy_agreement"] >= 0.9, rec["greedy_agreement"]
+    del pipe, res, greedy
+    torch.cuda.empty_cache()
 
-        corpus = d / "corpus"
-        names = write_corpus(corpus, PREPARE_DURATIONS, seed=seed, sv=False)
-        manifest = d / "corpus.list"
-        manifest.write_text("".join(f"{corpus / '5-wav32k' / n}|spk|{lang}|{text}\n"
-                                    for n, (lang, text) in zip(names, PREPARE_LINES)), encoding="utf-8")
-        rec["prepare_s_per_utt"] = {}
-        for dev in ("cuda", "cpu"):
-            reset_all_launch_counts()
-            t0 = time.perf_counter()
-            cli.main(["prepare", "--list", str(manifest), "--exp-dir", str(d / f"exp_{dev}"), "--version", "v2ProPlus",
-                      "--bert", p["bert"], "--hubert", p["hubert"], "--s2", p["s2"], "--sv", p["sv"], "--device", dev])
-            torch.cuda.synchronize()
-            rec["prepare_s_per_utt"][dev] = (time.perf_counter() - t0) / len(names)
-            assert not any(all_launch_counts().values()), all_launch_counts()  # no kernel on the prepare path
-            torch.cuda.empty_cache()
-        rec["prepare"] = _compare_prepared(d / "exp_cuda", d / "exp_cpu", names)
-        rec["serve"] = _serve_subprocess(model_argv, str(ref), seed)
-    return rec
+    corpus = d / "corpus"
+    names = write_corpus(corpus, PREPARE_DURATIONS, seed=seed, sv=False)
+    manifest = d / "corpus.list"
+    manifest.write_text("".join(f"{corpus / '5-wav32k' / n}|spk|{lang}|{text}\n"
+                                for n, (lang, text) in zip(names, PREPARE_LINES)), encoding="utf-8")
+    rec["prepare_s_per_utt"] = {}
+    for dev in ("cuda", "cpu"):
+        reset_all_launch_counts()
+        t0 = time.perf_counter()
+        cli.main(["prepare", "--list", str(manifest), "--exp-dir", str(d / f"exp_{dev}"), "--version", "v2ProPlus",
+                  "--bert", p["bert"], "--hubert", p["hubert"], "--s2", p["s2"], "--sv", p["sv"], "--device", dev])
+        torch.cuda.synchronize()
+        rec["prepare_s_per_utt"][dev] = (time.perf_counter() - t0) / len(names)
+        assert not any(all_launch_counts().values()), all_launch_counts()  # no kernel on the prepare path
+        torch.cuda.empty_cache()
+    rec["prepare"] = _compare_prepared(d / "exp_cuda", d / "exp_cpu", names)
+    rec["serve"] = _serve_subprocess(model_argv, str(ref), seed)
+    return rec, files
 
 
 # ---------------------------------------------------------------------------
@@ -3482,6 +3493,369 @@ def services_phase(d: Path, corpus_paths: dict, seed: int) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phases: export (the cli's pt2 and ONNX artifacts held on the card), tp
+# ---------------------------------------------------------------------------
+
+EXPORT_BAR = 1e-5  # a pt2 artifact against the eager module, f32 (TF32 off), of the output's scale (at least 1)
+ONNX_BARS = {"s1_step": 1e-4, "s1_prefill": 1e-4, "s2_decode": 1e-4, "vocoder": 2e-4}  # the JAX ONNX tests' bars
+EXPORT_SLOT = 745  # the S1 step's write slot (a 745-token prefix, as K1's cases)
+# the CFM program unrolls its Euler steps (on a CPU host ~3 s of tracing a step of 22 blocks, and several more to
+# save and load each): 2 steps here, the cli's default 8 elsewhere
+EXPORT_CFM_STEPS = 2
+
+
+def write_export_files(d: Path, seed: int) -> dict:
+    """From the seed, the v4 S2 and vocoder files and the v3 BigVGAN file in
+    the layouts load_s2 / load_vocoder read without a LoRA base: the v4
+    SynthesizerTrnV3 as a pretrained {weight} zip (fp16, weight-norm pairs,
+    no version header: read with --version v4), the v4 Generator's state
+    dict, BigVGAN's {"generator": state dict}."""
+    from gpt_sovits_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig
+    from gpt_sovits_tpu_torch.models.v3 import SynthesizerTrnV3
+    from gpt_sovits_tpu_torch.models.vits import Generator
+    from gpt_sovits_tpu_torch.train.ckpt import s2_reference_state, save_reference_pth
+    from gpt_sovits_tpu_torch.utils.config import vocoder_v4_config
+
+    d.mkdir(parents=True, exist_ok=True)
+    torch.manual_seed(seed)
+    paths = {"s2_v4": save_reference_pth(s2_reference_state(SynthesizerTrnV3(s2_config_for_version("v4")).state_dict()),
+                                         str(d / "s2Gv4.pth"))}
+    vcfg = vocoder_v4_config()
+    torch.save(Generator(vcfg, in_channels=vcfg.cfm_mel_channels, use_post_bias=True, conditioned=False).state_dict(),
+               d / "vocoder.pth")
+    paths["vocoder_v4"] = str(d / "vocoder.pth")
+    torch.save({"generator": BigVGAN(BigVGANConfig()).state_dict()}, d / "g_00600000")
+    paths["bigvgan"] = str(d / "g_00600000")
+    return paths
+
+
+def export_inputs(kind: str, model, g: torch.Generator) -> tuple:
+    """Seeded CPU inputs of an artifact at the cli's export shapes
+    (utils/export.py defaults)."""
+    from gpt_sovits_tpu_torch.utils import export as ex
+
+    def like(t, scale=1.0):
+        if t.dtype == torch.bool:
+            return t.cpu()
+        return (torch.randn(t.shape, generator=g) * scale).to(t.dtype) if t.is_floating_point() else t.cpu()
+
+    if kind == "s1_step":
+        e, k, v, valid, _ = ex.s1_step_args(model, 1, 2048)
+        valid = (torch.arange(2048) <= EXPORT_SLOT)[None]
+        return like(e, 0.5), like(k, 0.5), like(v, 0.5), valid, torch.tensor(EXPORT_SLOT, dtype=torch.int32)
+    if kind == "s1_prefill":
+        t = 512
+        bias = torch.where(torch.tril(torch.ones((t, t), dtype=torch.bool)), 0.0, -1e9)[None, None]
+        return torch.randn((1, t, model.cfg.embedding_dim), generator=g) * 0.5, bias
+    if kind in ("s2_decode", "s2_encp"):
+        c = model.cfg
+        b, tc, tt, tr = 1, 256, 128, 256
+        return (torch.randint(0, c.n_codes, (b, tc), generator=g, dtype=torch.int32), torch.full((b,), tc, dtype=torch.int32),
+                torch.randint(1, c.phoneme_vocab_size, (b, tt), generator=g, dtype=torch.int32),
+                torch.full((b,), tt, dtype=torch.int32), torch.randn((b, tr, c.spec_channels), generator=g).abs() * 0.3,
+                torch.full((b,), tr, dtype=torch.int32))
+    if kind == "cfm":
+        dit = model.cfm.estimator
+        return (torch.randn((1, 512, dit.cfg.text_dim), generator=g) * 0.5, torch.tensor([512], dtype=torch.int32),
+                torch.randn((1, 128, dit.cfg.mel_dim), generator=g) * 0.3, torch.randn((1, 512, dit.cfg.mel_dim), generator=g))
+    if kind == "vocoder":
+        return (torch.randn((1, 512, model.conv_pre.in_channels), generator=g) * 0.5,)
+    raise ValueError(kind)
+
+
+@torch.no_grad()
+def eager_outputs(kind: str, model, args: tuple, n_steps: int = EXPORT_CFM_STEPS) -> list:
+    """The eager module's outputs for an artifact's inputs (on the card): the
+    plain compositions each exporter traces."""
+    from gpt_sovits_tpu_torch.models.v3 import cfm_inference
+    from gpt_sovits_tpu_torch.utils import export as ex
+
+    a = [x.cuda() for x in args]
+    if kind == "s1_step":
+        k, v = a[1].clone(), a[2].clone()
+        return [model.decode_step(a[0], k, v, a[3], int(a[4])), k, v]
+    if kind == "s1_prefill":
+        return list(model.prefill(*a))
+    if kind == "s2_decode":
+        return [model.decode(*a)]
+    if kind == "s2_encp":
+        return list(model.decode_encp(*a))
+    if kind == "cfm":
+        return [cfm_inference(model.cfm.estimator, a[0], a[1], a[2], noise=a[3], n_steps=n_steps)]
+    if kind == "vocoder":
+        return [ex.plain_vocoder(model)(a[0])]
+    raise ValueError(kind)
+
+
+def hold_artifact(kind: str, fmt: str, blob: bytes, model, g: torch.Generator) -> dict:
+    """One artifact run on the card against the eager module on the same
+    seeded inputs: pt2 within EXPORT_BAR of each output's scale, onnx
+    (through utils/onnx_lite.py's executor on the card) within ONNX_BARS;
+    the S1 step's returned caches must hold the fresh K/V at its slot."""
+    from gpt_sovits_tpu_torch.utils import export as ex
+    from gpt_sovits_tpu_torch.utils.onnx_lite import OnnxModel
+
+    args = export_inputs(kind, model, g)
+    want = eager_outputs(kind, model, args)
+    t0 = time.perf_counter()
+    if fmt == "pt2":
+        run = ex.load_exported(blob, device="cuda")
+    else:
+        om = OnnxModel(blob, device="cuda")
+        run = lambda *xs: om.run(dict(zip(om.input_names, xs)))  # noqa: E731
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = run(*(x.cuda() for x in args))
+    got = [got] if isinstance(got, torch.Tensor) else list(got)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    assert len(got) == len(want), (kind, fmt, len(got), len(want))
+    errs, scales = [], []
+    for x, w in zip(got, want):
+        assert x.shape == w.shape and torch.isfinite(x.float()).all(), (kind, fmt, tuple(x.shape), tuple(w.shape))
+        errs.append(float((x.double() - w.double()).abs().max()))
+        scales.append(float(w.double().abs().max()))
+    bar = [EXPORT_BAR * max(1.0, s) for s in scales] if fmt == "pt2" else [ONNX_BARS[kind]] * len(errs)
+    assert all(e <= b for e, b in zip(errs, bar)), (kind, fmt, errs, bar)
+    rec = {"max_abs_err": errs, "scale": scales, "bar": bar, "load_s": load_s, "run_s": run_s}
+    if kind == "s1_step":  # the fresh K/V at the slot, the input caches elsewhere
+        for new, old in ((got[1].cpu(), args[1]), (got[2].cpu(), args[2])):
+            keep = torch.arange(new.shape[2]) != EXPORT_SLOT
+            assert torch.equal(new[:, :, keep], old[:, :, keep]), (fmt, "cache written off its slot")
+            assert not torch.allclose(new[:, :, EXPORT_SLOT], old[:, :, EXPORT_SLOT]), (fmt, "cache unwritten")
+        rec["cache_written_at"] = EXPORT_SLOT
+    return rec
+
+
+def refuses_a_trace_on_the_card() -> str:
+    """torch.export of a BigVGAN(use_kernel=True) on the card reaches K6's
+    wrapper, which raises before any launch."""
+    from gpt_sovits_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig
+    from gpt_sovits_tpu_torch.ops import snake_aa as sa
+    from gpt_sovits_tpu_torch.utils import export as ex
+
+    model = BigVGAN(BigVGANConfig(upsample_initial_channel=64), use_kernel=True).cuda().eval()
+    before = sa.launch_counts()["snake_aa"]
+    try:
+        ex.export_fn(model, ex.vocoder_args(model, 1, 16))
+    except RuntimeError as e:
+        assert "cannot be traced" in str(e), e
+        assert sa.launch_counts()["snake_aa"] == before
+        return str(e)
+    raise AssertionError("torch.export traced K6's wrapper on the card")
+
+
+# the cli runs of the export phase: (format, model flags); the artifacts of each land in a directory of its own
+EXPORT_RUNS = (("pt2", ("--s1", "s1", "--s2", "s2")),
+               ("pt2", ("--s2", "s2_v4", "--version", "v4", "--vocoder", "vocoder_v4", "--sample-steps", str(EXPORT_CFM_STEPS))),
+               ("pt2", ("--vocoder", "bigvgan", "--version", "v3")), ("onnx", ("--s1", "s1", "--s2", "s2")),
+               ("onnx", ("--vocoder", "vocoder_v4", "--version", "v4")), ("onnx", ("--vocoder", "bigvgan", "--version", "v3")))
+
+
+KERNEL_LIBS = ("decode_step", "qmatmul", "qflash", "snake_aa")
+
+
+def export_child(argv: list) -> dict:
+    """One `cli export` run on the card, in the process that calls it: the
+    artifacts' records, K1-K7's launches over it and the kernel libraries it
+    loaded (a launch loads its library first)."""
+    from gpt_sovits_tpu_torch import cli
+
+    resolve_device("cuda")
+    arts = cli.main(["export", *argv])
+    return {"artifacts": arts, "launches": all_launch_counts(),
+            "libraries_loaded": [n for n in KERNEL_LIBS if build.loaded(n)]}
+
+
+def _export_process(argv: list) -> dict:
+    """export_child in a child process of this checkout."""
+    code = "import json, sys, chip_smoke as c; print(json.dumps(c.export_child(sys.argv[1:])))"
+    res = subprocess.run([sys.executable, "-c", code, *argv], cwd=Path(__file__).resolve().parent, capture_output=True,
+                         text=True, timeout=900)
+    assert res.returncode == 0, ("cli export", argv, res.stderr[-3000:])
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def _export_models(paths: dict, flags: tuple, cache: dict) -> dict:
+    """The eager modules a cli export run exported, loaded as the cli loads
+    them, on the card (each file once, in `cache`): {artifact kind: module}."""
+    from gpt_sovits_tpu_torch.utils import loaders
+
+    f = dict(zip(flags[::2], flags[1::2]))
+    version = f.get("--version")
+    out = {}
+    if "--s1" in f:
+        if paths["s1"] not in cache:
+            cache[paths["s1"]] = loaders.load_s1(paths["s1"]).cuda().eval()
+        out["s1_step"] = out["s1_prefill"] = cache[paths["s1"]]
+    if "--s2" in f:
+        path = paths[f["--s2"]]
+        if path not in cache:
+            model, v = loaders.load_s2(path, version)
+            cache[path] = (model.cuda().eval(), v)
+        model, version = cache[path]
+        if version in ("v3", "v4"):
+            out["s2_encp"] = out["cfm"] = model
+        else:
+            out["s2_decode"] = model
+    if "--vocoder" in f:
+        path = paths[f["--vocoder"]]
+        if path not in cache:
+            cache[path] = loaders.load_vocoder(path, version or "v3").cuda().eval()
+        out["vocoder"] = cache[path]
+    return out
+
+
+def export_phase(seed: int, d: Path, reference_paths: dict) -> dict:
+    """`python -m gpt_sovits_tpu_torch.cli export` on the cli phase's seeded
+    v2ProPlus files (`reference_paths`, write_reference_files' paths) and
+    seeded v4 and v3 files (write_export_files), in both formats
+    (EXPORT_RUNS), each run a process of its own on the card, all at once
+    (tracing is single-threaded Python; export_child: K1-K7 launched 0
+    times, no kernel library loaded); then in this process each artifact loaded on the card and held
+    against the eager module (hold_artifact), its size and export seconds
+    recorded, and deleted once checked; then exporting BigVGAN(use_kernel=True)
+    on the card must raise K6's refusal."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    rec: dict = {"artifacts": {}}
+    t0 = time.perf_counter()
+    paths = {**reference_paths, **write_export_files(d / "export_models", seed)}
+    rec["write_s"] = time.perf_counter() - t0
+    argvs = []
+    for i, (fmt, flags) in enumerate(EXPORT_RUNS):
+        argv = [p if j % 2 == 0 or flags[j - 1] in ("--version", "--sample-steps") else paths[p]
+                for j, p in enumerate(flags)]
+        argvs.append(["--out-dir", str(d / f"export_{i}"), "--format", fmt, "--device", "cuda", *argv])
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(EXPORT_RUNS)) as pool:
+        runs = list(pool.map(_export_process, argvs))
+    rec["exports_wall_s"] = time.perf_counter() - t0
+    for run in runs:
+        assert not any(run["launches"].values()) and not run["libraries_loaded"], run
+    rec["launches_per_export_run"] = [run["launches"] for run in runs]
+    rec["launches_export"] = {n: sum(run["launches"][n] for run in runs) for n in runs[0]["launches"]}
+    g = torch.Generator().manual_seed(seed)
+    reset_all_launch_counts()
+    cache: dict = {}
+    for (fmt, flags), argv, run in zip(EXPORT_RUNS, argvs, runs):
+        models = _export_models(paths, flags, cache)
+        for name, a in run["artifacts"].items():
+            kind = next(k for k in models if name == k or name.startswith(k + "_"))
+            blob = Path(a["path"]).read_bytes()
+            key = f"{name}_{argv[argv.index('--version') + 1]}" if name == "vocoder" else name  # v3's and v4's
+            rec["artifacts"][f"{key}.{fmt}"] = {"bytes": a["bytes"], "export_s": a["export_s"],
+                                               **hold_artifact(kind, fmt, blob, models[kind], g)}
+            os.remove(a["path"])
+            del blob
+    del cache
+    torch.cuda.empty_cache()
+    rec["launches_export_holds"] = launches_zero("export phase's holds")
+    rec["trace_refused"] = refuses_a_trace_on_the_card()
+    rec["launches_after_refusal"] = launches_zero("trace refusal")
+    return rec
+
+
+def export_case(g: torch.Generator) -> dict:
+    """The exporters on seeded full-width models in memory (the broken
+    copies' check): the S1 step as pt2 and ONNX, the v2ProPlus S2 decode as
+    ONNX, each held by hold_artifact; K1-K7 launched 0 times."""
+    from gpt_sovits_tpu_torch.utils import export as ex
+    from gpt_sovits_tpu_torch.utils import onnx_export as oe
+
+    torch.manual_seed(0)
+    s1 = T2SDecoder(S1Config()).cuda().eval()
+    s2 = SynthesizerTrn(s2_config_for_version("v2ProPlus")).cuda().eval()
+    gc = torch.Generator().manual_seed(0)
+    reset_all_launch_counts()
+    rec = {"s1_step.pt2": hold_artifact("s1_step", "pt2", ex.export_s1_step(s1), s1, gc),
+           "s1_step.onnx": hold_artifact("s1_step", "onnx", oe.export_s1_step_onnx(s1), s1, gc),
+           "s2_decode.onnx": hold_artifact("s2_decode", "onnx", oe.export_s2_decode_onnx(s2), s2, gc)}
+    rec["launches"] = launches_zero("export case")
+    return rec
+
+
+TP_MODELS = ("s1", "s2_v2ProPlus", "v4", "bigvgan")
+
+
+def _tp_model(name: str):
+    from gpt_sovits_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig
+    from gpt_sovits_tpu_torch.models.v3 import SynthesizerTrnV3
+
+    with torch.device("meta"):
+        return {"s1": lambda: T2SDecoder(S1Config()),
+                "s2_v2ProPlus": lambda: SynthesizerTrn(s2_config_for_version("v2ProPlus")),
+                "v4": lambda: SynthesizerTrnV3(s2_config_for_version("v4")),
+                "bigvgan": lambda: BigVGAN(BigVGANConfig())}[name]()
+
+
+def tp_rule_counts() -> dict:
+    """The rule over the full-width models (on the meta device): per model,
+    the parameters and bytes (f32) in all, the sharded ones, and the bytes
+    a rank holds at 2 and 4 model ranks."""
+    from gpt_sovits_tpu_torch.parallel import mesh as tp
+
+    out = {}
+    for name in TP_MODELS:
+        model = _tp_model(name)
+        owners = dict(model.named_modules())
+        total = sharded = n_sharded = n_params = 0
+        per_rank = {2: 0, 4: 0}
+        for pname, p in model.named_parameters():
+            nbytes = p.numel() * 4
+            d = tp.shard_dim(tp.param_placement(pname, p, owners[pname.rpartition(".")[0]]))
+            n_params += 1
+            total += nbytes
+            if d is not None:
+                n_sharded += 1
+                sharded += nbytes
+            for n in per_rank:
+                per_rank[n] += nbytes // n if d is not None else nbytes
+        out[name] = {"params": n_params, "bytes": total, "sharded_params": n_sharded, "sharded_bytes": sharded,
+                     "bytes_per_rank": per_rank}
+    return out
+
+
+def tp_phase(seed: int) -> dict:
+    """The tensor-parallel rules: counts over the full-width models
+    (tp_rule_counts); on a one-process NCCL mesh (1, 1), S1's full-width
+    forward under shard_params equals the plain forward (two ranks are held
+    on the CPU over gloo: the card's machine has one card)."""
+    from gpt_sovits_tpu_torch.parallel import launch
+    from gpt_sovits_tpu_torch.parallel import mesh as tp
+
+    rec = {"rule": tp_rule_counts()}
+    reset_all_launch_counts()
+    torch.manual_seed(seed)
+    model = T2SDecoder(S1Config()).cuda().eval()
+    g = torch.Generator().manual_seed(seed)
+    b, tx, ty = 2, 60, 140
+    xy = (torch.randn((b, tx + ty, model.cfg.embedding_dim), generator=g) * 0.5).cuda()
+    x_valid = torch.ones((b, tx), dtype=torch.bool, device="cuda")
+    y_valid = torch.arange(ty, device="cuda")[None] < torch.tensor([[ty], [90]], device="cuda")
+    bias = build_prefix_attn_bias(x_valid, y_valid)
+    with torch.no_grad():
+        want = model(xy, bias)
+        t0 = time.perf_counter()
+        mesh = tp.make_mesh(1, 1)
+        try:
+            rec["mesh"] = {"shape": list(mesh.shape), "names": list(mesh.mesh_dim_names),
+                           "backend": torch.distributed.get_backend()}
+            tp.shard_params(model, mesh)
+            rec["sharded_params"] = sum(hasattr(p, "tp_dim") for p in model.parameters())
+            got = model(xy, bias)
+        finally:
+            launch.shutdown()
+        rec["mesh_s"] = time.perf_counter() - t0
+    rec["rel_err"] = rel_l2(got.float(), want.float())
+    rec["max_abs_err"] = float((got - want).abs().max())
+    assert rec["sharded_params"] > 0 and rec["max_abs_err"] <= EXPORT_BAR * max(1.0, float(want.abs().max())), rec
+    rec["launches"] = launches_zero("tp phase")
+    return rec
+
+
+
 def write_mdx_onnx(path: str, seed: int, width: int = 32) -> None:
     """An MDX-Net stand-in as an ONNX file, from the seed: (B, 4, dim_f,
     dim_t) -> Conv 3x3 (4 -> width) -> BatchNormalization -> Relu -> Conv 3x3
@@ -3643,9 +4017,13 @@ def main(argv=None) -> int:
 
     del pipe, svc
     torch.cuda.empty_cache()
-    # the command line on reference-format files: the loaders, tts (K1 counted from 0 just before it), prepare, serve
-    cli_rec = cli_phase(args.seed)
+    # the command line on reference-format files: the loaders, tts (K1 counted from 0 just before it), prepare, serve;
+    # the files stay for the export phase, which runs after every phase that reads the profiler
+    cli_dir = tempfile.TemporaryDirectory(prefix="gsv_smoke_cli_")
+    cli_rec, files = cli_phase(args.seed, Path(cli_dir.name))
     emit({"phase": "cli", **cli_rec})
+    cli_paths = files["paths"]
+    del files
     torch.cuda.empty_cache()
 
     # v4: the int8 DiT kernels at v4 shapes, then the full-width v4 path
@@ -3718,6 +4096,16 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     emit({"phase": "grad_refusal", "snake_aa": refuses_a_gradient_on_the_card()})
     emit({"phase": "gemm_tiles", **gemm_tile_phase(args.seed)})
+    # export on the cli phase's files and seeded v3/v4 ones, both formats (K1-K7 counted 0), then the TP rules
+    try:
+        t0 = time.perf_counter()
+        export_rec = export_phase(args.seed, Path(cli_dir.name), cli_paths)
+        emit({"phase": "export", "phase_s": time.perf_counter() - t0, **export_rec})
+    finally:
+        cli_dir.cleanup()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    emit({"phase": "tp", **tp_phase(args.seed), "phase_s": time.perf_counter() - t0})
     if args.parent is not None:
         emit({"phase": "compare_trees", **compare_trees(args.parent, args.seed)})
 
@@ -3766,6 +4154,8 @@ def main(argv=None) -> int:
                   "launches, plain_ms that of the twins in their place; max_abs_err over the bf16 stage shapes "
                   "(v3_kernels); no single PyTorch call computes this function",
     })
+    for k in kernels:  # the exports trace the plain compositions: no kernel launched in any cli export run
+        k["launches_export"] = export_rec["launches_export"][k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

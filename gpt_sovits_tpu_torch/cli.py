@@ -15,6 +15,7 @@
   webui       control panel over HTTP                (webui.py)
   serve-training  character training REST service    (server/)
   list-models newest trained weights per version     (get_trained_models.py)
+  export      pt2 / ONNX artifacts for other runtimes (onnx_export.py, export_torch_script*.py)
   download    fetch pretrained checkpoints and assets (download.py)
 
 The subcommands that compute run on the CUDA card unless `--device cpu`
@@ -257,6 +258,56 @@ def cmd_list_models(args):
     print(json.dumps(out, indent=2))
 
 
+def cmd_export(args) -> dict:
+    """The export artifacts of the given model files, loaded on --device:
+    `<name>.pt2` (utils/export.py, a torch.export program) or `<name>.onnx`
+    (utils/onnx_export.py), named as the JAX package names them. -> {name:
+    {"path", "bytes", "export_s"}}."""
+    from gpt_sovits_tpu_torch import resolve_device
+    from gpt_sovits_tpu_torch.utils import export as ex
+    from gpt_sovits_tpu_torch.utils import loaders
+
+    fmt = args.format
+    if fmt == "onnx":
+        from gpt_sovits_tpu_torch.utils import onnx_export as oe
+    dev = resolve_device(args.device)
+    os.makedirs(args.out_dir, exist_ok=True)
+    out = {}
+
+    def write(name, make):
+        t0 = time.perf_counter()
+        blob = make()
+        path = os.path.join(args.out_dir, f"{name}.{fmt}")
+        with open(path, "wb") as f:
+            f.write(blob)
+        out[name] = {"path": path, "bytes": len(blob), "export_s": time.perf_counter() - t0}
+
+    version = args.version
+    if args.s1:
+        model = loaders.load_s1(args.s1).to(dev).eval()  # f32, as the JAX package's ONNX artifact
+        if fmt == "onnx":
+            write("s1_prefill", lambda: oe.export_s1_prefill_onnx(model))
+            write("s1_step", lambda: oe.export_s1_step_onnx(model))
+        else:
+            write("s1_step", lambda: ex.export_s1_step(model))
+    if args.s2:
+        model, version = loaders.load_s2(args.s2, args.version)
+        model = model.to(dev).eval()
+        if version in ("v3", "v4"):  # export_torch_script_v3v4 equivalent
+            if fmt == "onnx":
+                raise SystemExit("ONNX export covers v1/v2 graphs (like the reference's "
+                                 "onnx_export.py); use --format pt2 for the v3/v4 CFM path")
+            write(f"s2_encp_{version}", lambda: ex.export_v3_decode(model))
+            write(f"cfm_{version}", lambda: ex.export_cfm(model, n_steps=args.sample_steps))
+        else:
+            write(f"s2_decode_{version}", lambda: (oe.export_s2_decode_onnx if fmt == "onnx" else ex.export_s2_decode)(model))
+    if args.vocoder:
+        model = loaders.load_vocoder(args.vocoder, version or "v3").to(dev).eval()
+        write("vocoder", lambda: (oe.export_vocoder_onnx if fmt == "onnx" else ex.export_vocoder)(model))
+    print("export done:", args.out_dir)
+    return out
+
+
 def _device(s):
     s.add_argument("--device", default=None, help="torch device (default: the CUDA card; 'cpu' for the CPU)")
 
@@ -384,6 +435,19 @@ def parser() -> argparse.ArgumentParser:
                    help="S1 KV-cache quantization (default: int8 on a card)")
     _device(s)
     s.set_defaults(fn=cmd_serve)
+
+    s = sub.add_parser("export")
+    s.add_argument("--out-dir", required=True)
+    s.add_argument("--s1")
+    s.add_argument("--s2")
+    s.add_argument("--version")
+    s.add_argument("--vocoder", help="v3 BigVGAN / v4 generator checkpoint to export")
+    s.add_argument("--sample-steps", type=int, default=8, help="Euler steps baked into the exported CFM program")
+    s.add_argument("--format", choices=("pt2", "onnx"), default="pt2",
+                   help="pt2: a torch.export program (torch.export.load); onnx: standard .onnx graphs "
+                        "(v1/v2 + vocoder)")
+    _device(s)
+    s.set_defaults(fn=cmd_export)
 
     s = sub.add_parser("webui", help="master control panel (webui.py equivalent)")
     s.add_argument("--host", default="127.0.0.1")

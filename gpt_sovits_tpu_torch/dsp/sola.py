@@ -1,7 +1,8 @@
-"""SOLA crossfade stitching (a copy of gpt_sovits_tpu/dsp/sola.py
-`sola_stitch`; reference TTS.sola_algorithm, TTS_infer_pack/TTS.py:1611-1635):
-adjacent fragments are aligned by cross-correlation over an overlap window
-and hann-crossfaded at the best lag."""
+"""SOLA crossfade stitching and the chunked CFM's chunk plan (a copy of
+gpt_sovits_tpu/dsp/sola.py `sola_stitch` and `chunk_plan`; reference
+TTS.sola_algorithm, TTS_infer_pack/TTS.py:1611-1635): adjacent fragments
+are aligned by cross-correlation over an overlap window and hann-crossfaded
+at the best lag."""
 
 from __future__ import annotations
 
@@ -31,3 +32,17 @@ def sola_stitch(fragments: list[np.ndarray], overlap_len: int) -> np.ndarray:
         f2_[:cut] = window[:cut] * f2_[:cut] + window[cut:] * f1[-cut:]
         frags[i + 1] = f2_
     return np.concatenate(frags, axis=0)
+
+
+def chunk_plan(total_len: int, t_ref: int, t_chunk: int) -> list[tuple[int, int]]:
+    """(start, length) chunks of the conditioning features such that each
+    CFM call sees [ref (t_ref) | todo (t_chunk - t_ref)] frames
+    (ref TTS.py:1461-1487)."""
+    chunk_len = t_chunk - t_ref
+    out = []
+    idx = 0
+    while idx < total_len:
+        ln = min(chunk_len, total_len - idx)
+        out.append((idx, ln))
+        idx += ln
+    return out

@@ -48,7 +48,8 @@ def sine_position_table(max_len: int, dim: int) -> np.ndarray:
 
 
 class SelfAttention(nn.Module):
-    """nn.MultiheadAttention's parameter layout (in_proj_*, out_proj)."""
+    """nn.MultiheadAttention's parameter layout (in_proj_*, out_proj);
+    calling it gives the fused q||k||v projection."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -56,6 +57,9 @@ class SelfAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
         self.out_proj = nn.Linear(dim, dim)
         nn.init.xavier_uniform_(self.in_proj_weight)
+
+    def forward(self, x):
+        return F.linear(x, self.in_proj_weight, self.in_proj_bias)
 
 
 class TransformerLayer(nn.Module):
@@ -79,8 +83,7 @@ class TransformerLayer(nn.Module):
         Returns (x, k, v) with k, v (B, T, H, Dh)."""
         b, t, d = x.shape
         h = self.num_heads
-        qkv = F.linear(x, self.self_attn.in_proj_weight, self.self_attn.in_proj_bias)
-        q, k, v = (z.reshape(b, t, h, d // h) for z in qkv.split(d, dim=-1))
+        q, k, v = (z.reshape(b, t, h, d // h) for z in self.self_attn(x).split(d, dim=-1))
         scale = 1.0 / np.sqrt(d // h)
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale + attn_bias
         probs = torch.softmax(scores, dim=-1)
@@ -97,8 +100,7 @@ class TransformerLayer(nn.Module):
         b, _, d = x.shape
         h = self.num_heads
         dh = d // h
-        qkv = F.linear(x, self.self_attn.in_proj_weight, self.self_attn.in_proj_bias)
-        q, k_new, v_new = qkv.split(d, dim=-1)
+        q, k_new, v_new = self.self_attn(x).split(d, dim=-1)
         if not isinstance(write_idx, int) and torch.as_tensor(write_idx).ndim == 1:
             rows = torch.arange(b, device=k_cache.device)
             idx = torch.as_tensor(write_idx, device=k_cache.device)
@@ -107,6 +109,29 @@ class TransformerLayer(nn.Module):
         else:
             k_cache[:, write_idx] = k_new.reshape(b, h, dh)
             v_cache[:, write_idx] = v_new.reshape(b, h, dh)
+        return self._attend(x, q, k_cache, v_cache, valid_mask)
+
+    def decode_functional(self, x, k_cache, v_cache, valid_mask, write_idx):
+        """`decode` without side effects, as the JAX layer's: write_idx a 0-d
+        or (B,) integer tensor, clamped into the cache as a dynamic update
+        clamps it -> (x, new k_cache, new v_cache). The new K/V go in by a
+        select over the slots, so no value is read to the host and no input
+        is written (what torch.export needs)."""
+        b, _, d = x.shape
+        t, h = k_cache.shape[1], self.num_heads
+        q, k_new, v_new = self.self_attn(x).split(d, dim=-1)
+        slot = torch.clamp(write_idx, 0, t - 1).reshape(-1, 1)  # (1 | B, 1)
+        at = (torch.arange(t, device=k_cache.device)[None, :] == slot)[:, :, None, None]
+        k_cache = torch.where(at, k_new.reshape(b, 1, h, d // h), k_cache)
+        v_cache = torch.where(at, v_new.reshape(b, 1, h, d // h), v_cache)
+        return self._attend(x, q, k_cache, v_cache, valid_mask), k_cache, v_cache
+
+    def _attend(self, x, q, k_cache, v_cache, valid_mask):
+        """The step after the cache write: the query over the valid slots,
+        then the residual, LN and MLP."""
+        b, _, d = x.shape
+        h = self.num_heads
+        dh = d // h
         scale = 1.0 / np.sqrt(dh)
         scores = torch.einsum("bhd,bkhd->bhk", q.reshape(b, h, dh), k_cache) * scale
         scores = scores.masked_fill(~valid_mask[:, None, :], float("-inf"))
@@ -186,6 +211,18 @@ class T2SDecoder(nn.Module):
         for i, layer in enumerate(self.h.layers):
             x = layer.decode(x, k_caches[i], v_caches[i], valid_mask, write_idx)
         return self.ar_predict_layer(x[:, 0])
+
+    def decode_step_functional(self, tok_emb, k_caches, v_caches, valid_mask, write_idx):
+        """`decode_step` as the JAX package's: write_idx a 0-d or (B,)
+        integer tensor, the input caches untouched -> (logits (B,V), new
+        k_caches, new v_caches (L,B,T,H,Dh)). What utils/export.py exports."""
+        x = tok_emb
+        new_ks, new_vs = [], []
+        for i, layer in enumerate(self.h.layers):
+            x, k, v = layer.decode_functional(x, k_caches[i], v_caches[i], valid_mask, write_idx)
+            new_ks.append(k)
+            new_vs.append(v)
+        return self.ar_predict_layer(x[:, 0]), torch.stack(new_ks), torch.stack(new_vs)
 
 
 def build_prefix_attn_bias(x_valid, y_valid):

@@ -262,21 +262,35 @@ class SynthesizerTrn(nn.Module):
     # -- inference ------------------------------------------------------------
 
     def decode_latent(self, codes, codes_lengths, text, text_lengths, refer_spec, refer_lengths, *,
-                      speed: float = 1.0, sv_emb=None, ge=None):
-        """JAX `decode` minus the vocoder, without prior noise (what the
-        pipeline runs) -> (z * y_mask (B,T,inter), ge (B,1,gin)). A given
-        `ge` (B,1,gin), such as the mean over auxiliary references that
-        `set_ref_audio(aux_wavs=...)` keeps, replaces the timbre of the
-        reference batch."""
+                      noise=None, noise_scale: float = 0.5, speed: float = 1.0, sv_emb=None, ge=None):
+        """JAX `decode` minus the vocoder -> (z * y_mask (B,T,inter), ge
+        (B,1,gin)). Without `noise` (what the pipeline runs) the prior's
+        mean goes through the flow, as JAX's `noise_rng=None`; with it,
+        (B,T,inter) standard normal draws scaled by exp(logs_p) *
+        noise_scale are added first. A given `ge` (B,1,gin), such as the
+        mean over auxiliary references that `set_ref_audio(aux_wavs=...)`
+        keeps, replaces the timbre of the reference batch."""
         if ge is None:
             ge = self.compute_ge_masked(refer_spec, refer_lengths, sv_emb)
         ge_for_enc = self.ge_to512(ge) if self.cfg.is_pro else ge
         quantized = self.decode_codes(codes).transpose(1, 2)
         y_mask = sequence_mask(codes_lengths * 2, quantized.shape[2])
         text_mask = sequence_mask(text_lengths, text.shape[1])
-        m_p, _, y_mask, _ = self.enc_p(quantized, y_mask, text, text_mask, ge_for_enc.transpose(1, 2), speed=speed)
-        z = self.flow.reverse(m_p, y_mask, g=ge.transpose(1, 2))
+        m_p, logs_p, y_mask, _ = self.enc_p(quantized, y_mask, text, text_mask, ge_for_enc.transpose(1, 2),
+                                            speed=speed)
+        z_p = m_p if noise is None else m_p + noise.transpose(1, 2) * torch.exp(logs_p) * noise_scale
+        z = self.flow.reverse(z_p, y_mask, g=ge.transpose(1, 2))
         return (z * y_mask).transpose(1, 2), ge
+
+    def decode(self, codes, codes_lengths, text, text_lengths, refer_spec, refer_lengths, *,
+               noise=None, noise_scale: float = 0.5, speed: float = 1.0, sv_emb=None, ge=None):
+        """models.py:961 `decode` (JAX `SynthesizerTrn.decode`): codes and the
+        reference -> waveform (B, T_wav, 1), `decode_latent` then the
+        vocoder. The prior noise is a tensor (`noise`, as in decode_latent),
+        not a generator, so the function can be exported."""
+        z, ge = self.decode_latent(codes, codes_lengths, text, text_lengths, refer_spec, refer_lengths, noise=noise,
+                                   noise_scale=noise_scale, speed=speed, sv_emb=sv_emb, ge=ge)
+        return self.dec(z, g=ge)
 
     # -- training -------------------------------------------------------------
 

@@ -390,8 +390,13 @@ class VQCodebook(nn.Module):
 
     def encode(self, x):
         """x (B,T,D) -> codes (B,T)."""
-        e = self.embed
-        dist = (x * x).sum(-1, keepdim=True) - 2.0 * torch.einsum("btd,kd->btk", x, e) + (e * e).sum(-1)[None, None]
+        return self.encode_with(x, self.embed)
+
+    @staticmethod
+    def encode_with(x, embed):
+        """The nearest code of each (B,T,D) row in `embed` (K,D) by Euclidean
+        distance -> (B,T)."""
+        dist = (x * x).sum(-1, keepdim=True) - 2.0 * torch.einsum("btd,kd->btk", x, embed) + (embed * embed).sum(-1)[None, None]
         return torch.argmin(dist, dim=-1)
 
     def decode(self, codes):

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from gpt_sovits_tpu_torch.ops import build
-from gpt_sovits_tpu_torch.ops.qmatmul import refuse_grad
+from gpt_sovits_tpu_torch.ops.qmatmul import refuse_grad, refuse_trace
 
 NEG = -1e30
 # launch geometry, as csrc/decode_step.cu defines it
@@ -503,6 +503,7 @@ def fused_decode_step(x, weights, kv_cache, mask, write_idx, kv_scales=None, *, 
     splits. CUDA tensors run the whole-step kernel; CPU tensors run the
     plain twins."""
     if _route(x):
+        refuse_trace("fused_decode_step", x)
         refuse_grad("fused_decode_step", x, *weights.values(), kv_cache, mask, kv_scales)
         return _step_cuda(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads, plan_sweep)
     return _step_plain(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads)

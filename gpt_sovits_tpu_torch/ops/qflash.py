@@ -19,7 +19,7 @@ import ctypes
 import torch
 
 from gpt_sovits_tpu_torch.ops import build
-from gpt_sovits_tpu_torch.ops.qmatmul import INV127, check, on_card, raise_on, refuse_grad
+from gpt_sovits_tpu_torch.ops.qmatmul import INV127, check, on_card, raise_on, refuse_grad, refuse_trace
 
 HEAD_DIM = 64  # the only head width the kernel takes
 KEY_TILE = 128  # keys per tile (csrc/qflash.cu KB): V's int8 copy is padded to it
@@ -89,6 +89,8 @@ def flash_attn_int8(q, k, v, mask=None, *, sm_scale: float):
     """K5. On CUDA: q, k, v bf16 (B, H, T, 64), mask f32 (B, T) or None;
     returns bf16 (B, T, H*64)."""
     card = on_card(q)
+    if card:
+        refuse_trace("flash_attn_int8", q)
     b, h, t, dh = q.shape
     dev = q.device
     for nm, x in (("q", q), ("k", k), ("v", v)):

@@ -22,6 +22,7 @@ import ctypes
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from gpt_sovits_tpu_torch.ops import build
 
@@ -217,6 +218,17 @@ def refuse_grad(name: str, *tensors) -> None:
                            "(run the plain version, or call under torch.no_grad())")
 
 
+def refuse_trace(name: str, t: torch.Tensor) -> None:
+    """Raise before a launch that torch.export or torch.compile is tracing:
+    a ctypes launch cannot be traced, and a fake tensor has no memory to
+    launch on. One tensor tells: under torch.export every input is fake
+    together. utils/export.py exports the plain compositions instead (the
+    JAX exports trace no Pallas kernel either)."""
+    if torch.compiler.is_compiling() or isinstance(t, FakeTensor):
+        raise RuntimeError(f"{name}: the CUDA kernel cannot be traced by torch.export or torch.compile "
+                           "(export the plain version: BigVGAN(use_kernel=False), the float DiT, the plain S1 step)")
+
+
 def on_card(t) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
     (take the twin); any other device raises."""
@@ -297,6 +309,8 @@ def qdense_int8(x, wq, sw, bias, ln_mod=None, res_gate=None, mask=None, *, act=N
     or (T, K), wq int8 (N, K), sw/bias f32 (N,), ln_mod f32 (B, K) each,
     res bf16 (B, T, N), gate f32 (B, N), mask f32 (B, T); returns bf16."""
     card = on_card(x)
+    if card:
+        refuse_trace("qdense_int8", x)
     if act not in (None, "gelu"):
         raise ValueError(f"act {act!r}: only 'gelu'")
     x3 = x[None] if x.ndim == 2 else x
@@ -364,6 +378,8 @@ def qkv_rope_int8(x, wq, wk, wv, sq, sk, sv, bq, bk, bv, ln_mod=None, *, dim_hea
     8 columns lie in one head); returns q, k, v bf16 (B, N/dim_head, T,
     dim_head)."""
     card = on_card(x)
+    if card:
+        refuse_trace("qkv_rope_int8", x)
     b, t, k = x.shape
     n = wq.shape[0]
     dev = x.device
@@ -389,6 +405,8 @@ def qdense_out_int8(attn, wq, sw, bias, res_gate_mask=None):
     res bf16 (B, T, N), gate f32 (B, N), mask f32 (B, T) or None; returns
     bf16 (B, T, N)."""
     card = on_card(attn)
+    if card:
+        refuse_trace("qdense_out_int8", attn)
     b, h, t, dh = attn.shape
     k = h * dh
     n = wq.shape[0]

@@ -32,7 +32,7 @@ import torch.nn.functional as F
 
 from gpt_sovits_tpu_torch import at_least_f32
 from gpt_sovits_tpu_torch.ops import build
-from gpt_sovits_tpu_torch.ops.qmatmul import check, on_card, raise_on, refuse_grad
+from gpt_sovits_tpu_torch.ops.qmatmul import check, on_card, raise_on, refuse_grad, refuse_trace
 
 TAPS = 12  # filter taps of the x2 resampling (csrc/snake_aa.cu TAPS)
 KERNELS = ("snake_aa",)
@@ -253,6 +253,8 @@ def snake_aa(x, alpha, beta, *, logscale: bool = True):
     """K6. See snake_aa_plain for the function; on CUDA: x bf16 or f32
     (B, C, T), alpha and beta f32 (C,); returns x's dtype."""
     card = on_card(x)
+    if card:
+        refuse_trace("snake_aa", x)
     if x.ndim != 3 or x.shape[-1] < 1:
         raise ValueError(f"x: expected (B, C, T) with T >= 1, got {tuple(x.shape)}")
     b, c, t = x.shape

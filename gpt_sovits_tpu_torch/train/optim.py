@@ -8,13 +8,24 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+import torch.distributed
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: list, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: list, max_norm: float, groups: Optional[list] = None) -> torch.Tensor:
     """optax.clip_by_global_norm in place: every gradient scales by
-    max_norm / norm when the global L2 norm reaches max_norm. -> the norm."""
-    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    max_norm / norm when the global L2 norm reaches max_norm. `groups`
+    gives, for each gradient, the process group over whose ranks it is
+    sharded (parallel/mesh.py `tp_group`) or None: a sharded gradient's
+    squares are summed over its group. -> the norm."""
+    groups = groups or [None] * len(grads)
+    sq = {}
+    for g, grp in zip(grads, groups):
+        sq[grp] = sq.get(grp, 0.0) + (g.float() ** 2).sum()
+    for grp, s in sq.items():
+        if grp is not None:
+            torch.distributed.all_reduce(s, group=grp)
+    norm = torch.sqrt(sum(sq.values()))
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:
         g.mul_(scale.to(g.dtype))
@@ -67,9 +78,9 @@ class MultiStepOptimizer:
             for p, a in zip(self.params, self.acc):
                 p.grad = a
             self.acc = None
-        grads = [p.grad for p in self.params if p.grad is not None]
-        if grads and self.grad_clip is not None:
-            clip_by_global_norm_(grads, self.grad_clip)
+        held = [p for p in self.params if p.grad is not None]
+        if held and self.grad_clip is not None:
+            clip_by_global_norm_([p.grad for p in held], self.grad_clip, [getattr(p, "tp_group", None) for p in held])
         for group, lr in zip(self.inner.param_groups, self.group_lrs(self.updates)):
             group["lr"] = lr
         self.inner.step()

@@ -1,7 +1,7 @@
 """Typed configuration (a copy of gpt_sovits_tpu/utils/config.py's
-MelConfig, MEL_V3, MEL_V4, S1Config, S2Config, TrainConfig,
-InferenceConfig, s2_config_for_version and the readers of the reference's
-config files) and the v4 vocoder's constants of
+MelConfig, MEL_V3, MEL_V4, S1Config, S2Config, TrainConfig, MeshConfig,
+InferenceConfig, s2_config_for_version, the readers of the reference's
+config files and asdict/to_json/replace) and the v4 vocoder's constants of
 gpt_sovits_tpu/utils/loaders.py `load_vocoder`."""
 
 from __future__ import annotations
@@ -9,7 +9,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Any, Sequence
 
 # ---------------------------------------------------------------------------
 # Model versions. Reference behavior matrix: GPT_SoVITS/TTS_infer_pack/TTS.py
@@ -129,6 +129,17 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The (data, model) device mesh of parallel/mesh.py: data parallelism
+    over batches, tensor parallelism of the wide weights."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallel: int = -1  # -1: all remaining processes
+    model_parallel: int = 1
+
+
+@dataclass(frozen=True)
 class InferenceConfig:
     """Serving knobs (reference: TTS_Config, TTS.py:217-409 and run() kwargs)."""
 
@@ -228,3 +239,15 @@ def inference_config_from_reference_yaml(path: str, version: str = "v2") -> "Inf
         d = yaml.safe_load(f) or {}
     sec = d.get(version, d.get("custom", {})) or {}
     return InferenceConfig(version=sec.get("version", version))
+
+
+def asdict(cfg: Any) -> dict:
+    return dataclasses.asdict(cfg)
+
+
+def to_json(cfg: Any) -> str:
+    return json.dumps(asdict(cfg), indent=2, default=str)
+
+
+def replace(cfg, **kw):
+    return dataclasses.replace(cfg, **kw)

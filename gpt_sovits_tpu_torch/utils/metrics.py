@@ -1,6 +1,7 @@
-"""Metrics logging, phase timing and throughput counters (a copy of
-gpt_sovits_tpu/utils/metrics.py's MetricsLogger, PhaseTimer and
-ThroughputMeter parts that the trainers and `TTSPipeline.run` use)."""
+"""Metrics logging, phase timing, throughput counters and a profiler
+hook (port of gpt_sovits_tpu/utils/metrics.py: MetricsLogger, PhaseTimer,
+ThroughputMeter; `profile_trace` on torch.profiler where the JAX package
+uses jax.profiler)."""
 
 from __future__ import annotations
 
@@ -9,6 +10,8 @@ import json
 import os
 import time
 from dataclasses import dataclass
+
+import torch
 
 
 class MetricsLogger:
@@ -65,10 +68,20 @@ class PhaseTimer:
 
 @dataclass
 class ThroughputMeter:
-    """Audio seconds synthesized against wall seconds, over requests."""
+    """Audio seconds synthesized against wall seconds, over requests, and
+    per chip (`n_chips`)."""
 
+    n_chips: int = 1
     audio_seconds: float = 0.0
     wall_seconds: float = 0.0
+
+    @contextlib.contextmanager
+    def measure(self, audio_seconds: float):
+        """Time the block as one request of `audio_seconds` of audio."""
+        t0 = time.perf_counter()
+        yield
+        self.wall_seconds += time.perf_counter() - t0
+        self.audio_seconds += audio_seconds
 
     def measure_done(self, audio_seconds: float, wall_seconds: float) -> None:
         """Record an already-timed request (phases measured elsewhere)."""
@@ -78,3 +91,27 @@ class ThroughputMeter:
     @property
     def rtf(self) -> float:
         return self.wall_seconds / max(self.audio_seconds, 1e-9)
+
+    @property
+    def audio_s_per_s_per_chip(self) -> float:
+        return self.audio_seconds / max(self.wall_seconds, 1e-9) / self.n_chips
+
+    def as_dict(self) -> dict:
+        return {"rtf": self.rtf, "audio_s_per_s_per_chip": self.audio_s_per_s_per_chip,
+                "audio_seconds": self.audio_seconds, "wall_seconds": self.wall_seconds}
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str):
+    """A torch.profiler trace (CPU, and CUDA where a card is present) of the
+    block, written as a Chrome trace `{log_dir}/trace.json` (chrome://tracing
+    or Perfetto) when the block ends. Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

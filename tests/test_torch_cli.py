@@ -1,5 +1,6 @@
 """The port's command line (gpt_sovits_tpu_torch/cli.py) on the CPU: the help
-of every subcommand and none for the one not ported (`export`); `slice`,
+of every subcommand (every one of the JAX cli's is ported; `export` is
+tested in test_torch_export.py); `slice`,
 `list-models`, `denoise`, `separate` and `asr` (a stub funasr) against the
 JAX package's cli; `download` without the network; the `webui` and
 `serve-training` wiring; the `prepare` and `train-*`
@@ -40,9 +41,9 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
 SUBCOMMANDS = ("slice", "prepare", "train-s1", "train-s2", "train-v3", "tts", "serve", "list-models", "denoise",
-               "separate", "asr", "webui", "serve-training", "download")
+               "separate", "asr", "webui", "serve-training", "download", "export")
 NO_DEVICE = ("slice", "list-models", "asr", "webui", "download")  # the subcommands that run no model
-NOT_PORTED = ("export",)
+NOT_PORTED = ()  # every subcommand of the JAX cli is ported
 S1_CLI = dict(S1, max_len=4096)  # the serving pool's cache: tx 512 + prompt 512 + 750 new tokens
 TEXT = "Hello world this is the first segment. And here comes the second one!"
 

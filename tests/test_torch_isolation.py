@@ -50,7 +50,8 @@ def test_imports_with_jax_blocked():
                 "parallel.launch", "parallel.sync", "native", "utils.checkpoint_compat", "utils.safetensors",
                 "utils.loaders", "prepare.extract", "dsp.slicer", "cli", "dsp.stft", "models.frcrn", "corpus.denoise",
                 "corpus.roformer", "corpus.vr", "corpus.mdx", "corpus.uvr5", "corpus.asr", "utils.i18n",
-                "serve.training_service", "serve.training_steps", "serve.webui", "utils.download"):
+                "serve.training_service", "serve.training_steps", "serve.webui", "utils.download", "utils.export",
+                "utils.onnx_export", "parallel.mesh"):
         assert f"gpt_sovits_tpu_torch.{mod}" in res.stdout, mod
 
 
