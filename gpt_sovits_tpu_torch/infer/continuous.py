@@ -32,6 +32,20 @@ fused S1 step (K1, ops/decode_step.py) on a card or the plain
   * No device value is read back to size a step: the host keeps a mirror
     of each slot's step count, from which it passes K1 the rows' write
     slots as a host list.
+  * The recorder (`utils/metrics.py`) takes, on the scheduler's thread: a
+    `pool.pass` span a `step()` (attributes: steps, the thread's CPU time
+    outside the copy waits, the wall time blocked on copies, installed
+    rows), with `pool.admit` (rows; children `pool.prefill`, `pool.draw`,
+    `pool.install`), one `pool.queue` span a row admitted (its enqueue in
+    `submit` to its admission), `pool.segment` (steps, rows) and the copy
+    waits inside it: `pool.sync_flags` / `pool.sync_tokens` (the wait on
+    a device-to-host copy's event) and, on a card, `pool.sync_upload` (an
+    admission's plain host-to-device copy, which waits for the stream to
+    drain first), each with its CPU time as attribute; a `pool.evict`
+    mark a finished row (its length); and the counter
+    `pool.decoded_row_steps`, stamped at each flag copy's capture: the
+    installed rows' growth in length since the copy before, as the copy
+    reads it.
 
 Slot cache layout (per row, T_total = tx_max + tp_max + 1 + max_new rounded
 up to 512):
@@ -52,6 +66,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import threading
+import time
 from collections import deque
 from typing import Optional
 
@@ -62,6 +77,14 @@ import torch.nn.functional as F
 from gpt_sovits_tpu_torch import resolve_device
 from gpt_sovits_tpu_torch.models.t2s import EOS_MASK_WARMUP_STEPS, T2SDecoder, build_prefix_attn_bias
 from gpt_sovits_tpu_torch.ops import decode_step as ds
+from gpt_sovits_tpu_torch.utils.metrics import recorder
+
+_REC = recorder()
+_PASS, _ADMIT, _PREFILL, _DRAW, _INSTALL, _QUEUE, _SEGMENT, _SYNC_FLAGS, _SYNC_TOKENS, _SYNC_UPLOAD, _EVICT = (
+    _REC.intern(n) for n in ("pool.pass", "pool.admit", "pool.prefill", "pool.draw", "pool.install", "pool.queue",
+                             "pool.segment", "pool.sync_flags", "pool.sync_tokens", "pool.sync_upload",
+                             "pool.evict"))
+_DECODED_ROW_STEPS = _REC.intern("pool.decoded_row_steps")
 
 
 def filter_logits_rows(logits, presence, top_k, top_p, temperature, rep_penalty):
@@ -171,6 +194,7 @@ class _Request:
     top_p: float
     temperature: float
     rep_penalty: float
+    enqueued_ns: int  # perf_counter_ns at submit
 
 
 class _Fetch:
@@ -294,8 +318,8 @@ class ContinuousBatcher:
         self._count = np.zeros(slots, np.int64)  # host mirror of gen_count (0: empty slot)
         self._draws: list[Optional[np.random.Generator]] = [None] * slots  # each row's uniform stream
         self._next_rid = 0
-        self.admitted_at: dict[int, int] = {}  # rid -> segment index when admitted
-        self.finished_at: dict[int, int] = {}
+        self._len_seen = np.zeros(slots, np.int64)  # each row's length as the last flag copy read it
+        self._pass_sync_ns = self._pass_sync_cpu_ns = 0  # the current pass's blocked copy waits
         self._segments_run = 0
         self.steps_run = 0  # pool steps (one K1 launch each in fused mode)
         self.peak_live = 0  # most rows a flag copy saw live at once
@@ -303,7 +327,8 @@ class ContinuousBatcher:
         # oldest only once more than `lookahead` are in flight, so the
         # device keeps decoding while the copies complete; done-detection
         # (and so slot reuse) lags by up to that many segments.
-        self._flag_q: deque = deque()  # (_Fetch of (2, B): done, lengths; segment count at capture)
+        # (_Fetch of (2, B): done, lengths; segment count at capture; perf_counter_ns at capture)
+        self._flag_q: deque = deque()
         self.lookahead = int(os.environ.get("GSVT_CB_LOOKAHEAD", "2")) if lookahead is None else lookahead
         self._token_fetches: list[tuple[list, list, list, _Fetch]] = []  # (rids, lens, slots, copy)
         # slots whose token copy has not completed are not reinstalled, as in
@@ -363,6 +388,7 @@ class ContinuousBatcher:
                 d["top_p"] if top_p is None else float(top_p),
                 d["temperature"] if temperature is None else float(temperature),
                 d["repetition_penalty"] if repetition_penalty is None else float(repetition_penalty),
+                time.perf_counter_ns(),
             ))
         return rid
 
@@ -370,21 +396,31 @@ class ContinuousBatcher:
     def step(self, n: int = 25) -> dict[int, np.ndarray]:
         """One scheduler pass (see the class docstring). Returns {rid:
         tokens} of the requests whose results arrived in this pass."""
-        # flags already on the host cost nothing to act on now, and free
-        # slots for this pass's admissions
-        self._consume_ready_flags()
-        self._admit_batch()
-        if any(r is not None for r in self._slot_rid):
-            self._segment(n)
-            self._segments_run += 1
-            self._flag_q.append((_Fetch(torch.stack([self.state.done.long(), self.state.lengths])),
-                                 self._segments_run))
-            if len(self._flag_q) > self.lookahead:
+        seq = _REC.begin(_PASS)
+        cpu0 = time.thread_time_ns()
+        self._pass_sync_ns = self._pass_sync_cpu_ns = 0
+        steps = rows = 0
+        try:
+            # flags already on the host cost nothing to act on now, and free
+            # slots for this pass's admissions
+            self._consume_ready_flags()
+            self._admit_batch()
+            rows = sum(r is not None for r in self._slot_rid)
+            if rows:
+                steps = n
+                self._segment(n)
+                self._segments_run += 1
+                self._flag_q.append((_Fetch(torch.stack([self.state.done.long(), self.state.lengths])),
+                                     self._segments_run, time.perf_counter_ns()))
+                if len(self._flag_q) > self.lookahead:
+                    self._consume_ready_flags(force_oldest=True)
+                return self._resolve_token_fetches(block=False)
+            while self._flag_q:  # idle pool: flush everything in flight
                 self._consume_ready_flags(force_oldest=True)
-            return self._resolve_token_fetches(block=False)
-        while self._flag_q:  # idle pool: flush everything in flight
-            self._consume_ready_flags(force_oldest=True)
-        return self._resolve_token_fetches(block=True)
+            return self._resolve_token_fetches(block=True)
+        finally:
+            cpu = time.thread_time_ns() - cpu0 - self._pass_sync_cpu_ns
+            _REC.end(seq, steps, cpu, self._pass_sync_ns, rows)
 
     @property
     def pending(self) -> int:
@@ -409,6 +445,10 @@ class ContinuousBatcher:
         with self._submit_lock:
             take = min(len(free), len(self._queue))
             reqs = [self._queue.pop(0) for _ in range(take)]
+        admit = _REC.begin(_ADMIT)
+        t_admit = time.perf_counter_ns()
+        for r in reqs:
+            _REC.record(_QUEUE, r.enqueued_ns, t_admit, r.rid)
         slots = free[:take]
         tx, tp = self.tx_max, self.tp_max
         phones = np.zeros((take, tx), np.int64)
@@ -423,36 +463,54 @@ class ContinuousBatcher:
             prompt[i, : len(r.prompt)] = r.prompt  # right-pad
             prompt_len[i] = len(r.prompt)
         dev = self.device
+        seq = _REC.begin(_PREFILL)
         k_rows, v_rows, valid, presence, first_logits = _prefill(
-            self.model, *(torch.from_numpy(a).to(dev) for a in (phones, phone_len, bert, prompt, prompt_len)),
+            self.model, *(self._to_device(a) for a in (phones, phone_len, bert, prompt, prompt_len)),
             tx_max=tx, tp_max=tp, t_total=self.t_total,
         )
+        _REC.end(seq, take)
+        seq = _REC.begin(_DRAW)
         draws = [np.random.Generator(np.random.Philox(r.seed)) for r in reqs]
         params = self._row_params(reqs)
         fl = first_logits.float()
         fl[:, self.model.cfg.eos_id] = float("-inf")
-        uniform = torch.from_numpy(np.array([g.random(dtype=np.float32) for g in draws])).to(dev)
+        uniform = self._to_device(np.array([g.random(dtype=np.float32) for g in draws]))
         tok0 = sample_token_rows(fl, presence, *params, uniform)
         presence[torch.arange(take, device=dev), tok0] = True
-        pl = torch.from_numpy(prompt_len).to(dev)
+        pl = self._to_device(prompt_len)
         tok0_emb = self.model.embed_audio(tok0[:, None], pl[:, None])
-        self._install_rows(torch.tensor(slots, device=dev), k_rows, v_rows, valid, presence, tok0, tok0_emb, pl,
+        _REC.end(seq, take)
+        seq = _REC.begin(_INSTALL)
+        self._install_rows(self._to_device(np.array(slots)), k_rows, v_rows, valid, presence, tok0, tok0_emb, pl,
                            params)
         for r, s, g in zip(reqs, slots, draws):
             self._slot_rid[s] = r.rid
             self._slot_gen[s] = self._segments_run
             self._count[s] = 1
+            self._len_seen[s] = 1  # the first token, which the admission samples
             self._draws[s] = g
-            self.admitted_at[r.rid] = self._segments_run
+        _REC.end(seq, take)
+        _REC.end(admit, take)
 
     def _row_params(self, reqs):
         """(top_k, top_p, temperature, rep_penalty) of the requests, (k,)
         tensors on the pool's device."""
-        dev = self.device
-        return (torch.tensor([r.top_k for r in reqs], dtype=torch.long, device=dev),
-                torch.tensor([r.top_p for r in reqs], dtype=torch.float32, device=dev),
-                torch.tensor([r.temperature for r in reqs], dtype=torch.float32, device=dev),
-                torch.tensor([r.rep_penalty for r in reqs], dtype=torch.float32, device=dev))
+        return (self._to_device(np.array([r.top_k for r in reqs], np.int64)),
+                self._to_device(np.array([r.top_p for r in reqs], np.float32)),
+                self._to_device(np.array([r.temperature for r in reqs], np.float32)),
+                self._to_device(np.array([r.rep_penalty for r in reqs], np.float32)))
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """A host array to the device by a plain copy from pageable memory,
+        which on a card first waits for the stream to drain: that wait is
+        timed into the pass's copy waits (`pool.sync_upload`)."""
+        t = torch.from_numpy(a)
+        if self.device.type != "cuda":
+            return t
+        t0, c0 = time.perf_counter_ns(), time.thread_time_ns()
+        out = t.to(self.device)
+        self._blocked(_SYNC_UPLOAD, t0, c0)
+        return out
 
     def _install_rows(self, sl, k_rows, v_rows, valid, presence, tok0, tok0_emb, prompt_len, params):
         """Write k prefilled requests into the pool slots `sl` (k,), in
@@ -492,8 +550,10 @@ class ContinuousBatcher:
         for i in np.flatnonzero(installed):
             uniform[:, i] = self._draws[i].random(n, dtype=np.float32)
         slots_dev, uniform_dev = self._upload(slots), self._upload(uniform)
+        seq = _REC.begin(_SEGMENT)
         for i in range(n):
             self._decode_one(slots[i].tolist(), slots_dev[i], uniform_dev[i])
+        _REC.end(seq, n, int(installed.sum()))
         self._count = np.where(installed, np.minimum(self._count + n, self.max_new), 0)
         self.steps_run += n
 
@@ -544,32 +604,55 @@ class ContinuousBatcher:
         already on the host, and with `force_oldest` the first one in any
         case (bounding the queue at `lookahead`, and draining at idle)."""
         while self._flag_q:
-            fetch, gen = self._flag_q[0]
+            fetch, gen, t_copy = self._flag_q[0]
             if not (force_oldest or fetch.ready()):
                 return
             force_oldest = False
             self._flag_q.popleft()
-            self._apply_flags(fetch.get(), gen)
+            self._apply_flags(self._wait(fetch, _SYNC_FLAGS), gen, t_copy)
 
-    def _apply_flags(self, flags: np.ndarray, flag_gen: int) -> None:
+    def _wait(self, fetch: _Fetch, name: int) -> np.ndarray:
+        """A copy's host array, its wait on the copy's event timed into the
+        pass (wall and thread CPU time) and recorded as a span."""
+        if fetch.event is None:
+            return fetch.get()
+        t0, c0 = time.perf_counter_ns(), time.thread_time_ns()
+        out = fetch.get()
+        self._blocked(name, t0, c0)
+        return out
+
+    def _blocked(self, name: int, t0: int, c0: int) -> None:
+        """Count a copy wait that started at `t0` (`perf_counter_ns`) and
+        thread CPU time `c0` into the pass, and record it as a span."""
+        cpu, t1 = time.thread_time_ns() - c0, time.perf_counter_ns()
+        self._pass_sync_ns += t1 - t0
+        self._pass_sync_cpu_ns += cpu
+        _REC.record(name, t0, t1, -1, cpu)
+
+    def _apply_flags(self, flags: np.ndarray, flag_gen: int, t_copy: int) -> None:
         """Evict the rows a flag copy reports done and start the copies of
         their tokens. A flag copy speaks only for tenants installed before
         it was captured: a copy older than a slot's install may still carry
-        the previous tenant's done flag."""
+        the previous tenant's done flag. The installed rows' growth in
+        length since the copy before is counted at this copy's capture
+        time `t_copy`."""
         done, lengths = flags
         evicted = []
-        live = 0
+        live = decoded = 0
         for slot in range(self.slots):
             rid = self._slot_rid[slot]
             if rid is None or flag_gen <= self._slot_gen[slot]:
                 continue
+            decoded += int(lengths[slot]) - int(self._len_seen[slot])
+            self._len_seen[slot] = lengths[slot]
             if done[slot]:
-                self.finished_at[rid] = self._segments_run
+                _REC.mark(_EVICT, rid, int(lengths[slot]))
                 evicted.append((slot, rid, int(lengths[slot])))
                 self._slot_rid[slot] = None
                 self._count[slot] = 0
             else:
                 live += 1
+        _REC.count(_DECODED_ROW_STEPS, decoded, t_copy)
         self.peak_live = max(self.peak_live, live)
         if evicted:
             slots_e = [s for s, _, _ in evicted]
@@ -585,7 +668,7 @@ class ContinuousBatcher:
             if not (block or fetch.ready()):
                 keep.append((rids, lens, slots_e, fetch))
                 continue
-            for rid, ln, toks in zip(rids, lens, fetch.get()):
+            for rid, ln, toks in zip(rids, lens, self._wait(fetch, _SYNC_TOKENS)):
                 out[rid] = toks[:ln].copy()
             self._slot_hold.difference_update(slots_e)
         self._token_fetches = keep

@@ -39,6 +39,12 @@ JAX package. The JAX package's TPU devices (compile-cache
 buckets for padded shapes, the lane-folded vocoder, the cross-group
 launch/fetch overlap over a slow host link) have no counterpart here; the
 padded shapes are kept so that both packages run the same computation.
+
+`run`'s phases are the recorder's `phase.<name>` spans with the run's
+request id (utils/metrics.py PhaseTimer); the batched v3/v4 branch adds a
+`v3.encp` span a segment, `v3.assemble` (the chunk plan and assembly) and
+`v3.fetch` (the int16 copy and SOLA); `generate` and `cfm_inference` take
+their own (models/t2s.py, models/v3.py).
 """
 
 from __future__ import annotations
@@ -74,9 +80,10 @@ from gpt_sovits_tpu_torch.text.cleaner import clean_text
 from gpt_sovits_tpu_torch.text.lang_segmenter import runs_for_language
 from gpt_sovits_tpu_torch.text.segmentation import get_method, split_big_text
 from gpt_sovits_tpu_torch.utils.config import InferenceConfig, MelConfig
-from gpt_sovits_tpu_torch.utils.metrics import PhaseTimer, ThroughputMeter
+from gpt_sovits_tpu_torch.utils.metrics import PhaseTimer, next_request_id, recorder
 
 BERT_DIM = 1024
+_REC = recorder()
 
 
 def _split_batches(sorted_lens: list, batch_size: int, threshold: float) -> list[list[int]]:
@@ -260,7 +267,6 @@ class TTSPipeline:
             self._dec = copy.deepcopy(self.s2.dec).to(self._voc_dtype) if self.half else self.s2.dec
         else:
             self._init_v3(on_gpu)
-        self.meter = ThroughputMeter()
         self.last_timing: dict = {}
 
     def _init_v3(self, on_gpu: bool):
@@ -485,7 +491,7 @@ class TTSPipeline:
         fragment_interval = cfg.fragment_interval if fragment_interval is None else fragment_interval
         speed = snap_speed(speed)
 
-        timer = PhaseTimer()
+        timer = PhaseTimer(next_request_id())
         with timer.phase("preprocess"):
             segments = self.preprocess(text, language, cut_method or cfg.text_split_method)
         if not segments:
@@ -535,7 +541,6 @@ class TTSPipeline:
             pieces.append(wavs[i])
             pieces.append(silence)
         audio = np.clip(np.concatenate(pieces[:-1]), -1.0, 1.0)
-        self.meter.measure_done(len(audio) / sr, sum(timer.phases.values()))
         self.last_timing = dict(timer.phases)
         if cfg.report_timing:
             print(timer.report(), f"audio:{len(audio) / sr:.2f}s")
@@ -744,17 +749,19 @@ class TTSPipeline:
         feat_list, feat_lens = [], []
         for i, seg in enumerate(batch):
             n = int(lengths[i])
-            pids = torch.tensor([seg["phones"]], dtype=torch.long, device=dev)
-            fea, _, _ = v3.model.decode_encp(
-                out.tokens[i : i + 1, : _next_bucket(n)], torch.tensor([n], device=dev), pids,
-                torch.tensor([pids.shape[1]], device=dev), refer, refer_len, speed=speed, ge=ge,
-            )
+            with _REC.span("v3.encp"):
+                pids = torch.tensor([seg["phones"]], dtype=torch.long, device=dev)
+                fea, _, _ = v3.model.decode_encp(
+                    out.tokens[i : i + 1, : _next_bucket(n)], torch.tensor([n], device=dev), pids,
+                    torch.tensor([pids.shape[1]], device=dev), refer, refer_len, speed=speed, ge=ge,
+                )
             total = self._mel_len_for(n, speed)
             feat_list.append(fea[:, :total])
             feat_lens.append(total)
-        feats = torch.cat(feat_list, dim=1)
-        bs, padding_len, bs_pad = v3_chunk_plan(sum(feat_lens), chunk_len, overlap)
-        fea = _v3_assemble_chunks(feats, fea_ref0, bs=bs, bs_pad=bs_pad, overlap=overlap, chunk_len=chunk_len)
+        with _REC.span("v3.assemble"):
+            feats = torch.cat(feat_list, dim=1)
+            bs, padding_len, bs_pad = v3_chunk_plan(sum(feat_lens), chunk_len, overlap)
+            fea = _v3_assemble_chunks(feats, fea_ref0, bs=bs, bs_pad=bs_pad, overlap=overlap, chunk_len=chunk_len)
         noise = self._cfm_noise((bs_pad, fea.shape[1], mel2_0.shape[2]), generator)
         mel_out = cfm_inference(
             self._dit, fea.to(self._cfm_dtype), torch.full((bs_pad,), t_min + chunk_len, device=dev),
@@ -781,9 +788,10 @@ class TTSPipeline:
         """Fetch stage: int16 off the device, SOLA crossfade, one clip per
         segment."""
         wav_dev, feat_lens, bs, padding_len, chunk_len, overlap, upsample = state
-        wav = wav_dev.cpu().numpy().astype(np.float32) / 32767.0
-        frag_len = chunk_len * upsample
-        audio = sola_stitch([wav[k * frag_len : (k + 1) * frag_len] for k in range(bs)], overlap * upsample)
+        with _REC.span("v3.fetch"):
+            wav = wav_dev.cpu().numpy().astype(np.float32) / 32767.0
+            frag_len = chunk_len * upsample
+            audio = sola_stitch([wav[k * frag_len : (k + 1) * frag_len] for k in range(bs)], overlap * upsample)
         audio = audio[overlap * upsample : len(audio) - padding_len * upsample or None]
         out, off = [], 0
         for total in feat_lens:

@@ -29,9 +29,12 @@ import torch.nn.functional as F
 
 from gpt_sovits_tpu_torch import at_least_f32
 from gpt_sovits_tpu_torch.utils.config import S1Config
+from gpt_sovits_tpu_torch.utils.metrics import recorder
 
 EOS_MASK_WARMUP_STEPS = 11  # ref t2s_model.py:889 — no EOS before 0.4 s
 STOP_CHECK_EVERY = 8  # host reads of all(done) in generate()
+_REC = recorder()
+_S1_STEP, _S1_DONE_READ = _REC.intern("s1.step"), _REC.intern("s1.done_read")
 # the JAX TransformerLayer uses flax's default LayerNorm epsilon; the fused
 # decode kernel uses 1e-5 (see ops/decode_step.py)
 LN_EPS = 1e-6
@@ -301,7 +304,10 @@ def generate(
     kv_cache_quant: str = "bf16",
     fused_weights: dict | None = None,
 ) -> GenResult:
-    """Batched zero-shot semantic token generation (port of t2s.py:311)."""
+    """Batched zero-shot semantic token generation (port of t2s.py:311).
+    Recorded (utils/metrics.py): an `s1.done_read` span around each host
+    read of all(done), and while tracing is on an `s1.step` span a step
+    (its index)."""
     cfg = model.cfg
     dev = phoneme_ids.device
     b, tx = phoneme_ids.shape
@@ -389,8 +395,15 @@ def generate(
     stop_at = max_new_tokens if early_stop_num < 0 else min(early_stop_num, max_new_tokens)
     step_i = 1
     while step_i < stop_at:
-        if step_i % STOP_CHECK_EVERY == 0 and bool(done.all()):
-            break
+        if step_i % STOP_CHECK_EVERY == 0:
+            read = _REC.begin(_S1_DONE_READ)
+            all_done = bool(done.all())
+            _REC.end(read)
+            if all_done:
+                break
+        fine = _REC.fine()
+        if fine:
+            step_span = _REC.begin(_S1_STEP)
         write_idx = scratch_idx + step_i - 1
         if use_fused_kernel:
             logits = step(tok_emb, mask, write_idx)
@@ -410,6 +423,8 @@ def generate(
         done = done | newly_done
         presence[rows, tok] = True
         tok_emb = model.embed_audio(tok[:, None], (prompt_lens + step_i)[:, None])
+        if fine:
+            _REC.end(step_span, step_i)
         step_i += 1
     return GenResult(tokens=tokens, lengths=lengths, steps=step_i)
 

@@ -27,6 +27,10 @@ from gpt_sovits_tpu_torch.models.vits_modules import (
     WN, Conv1d, MelStyleEncoder, ResidualCouplingBlock, VQCodebook, sequence_mask,
 )
 from gpt_sovits_tpu_torch.utils.config import S2Config
+from gpt_sovits_tpu_torch.utils.metrics import recorder
+
+_REC = recorder()
+_CFM_CALL, _CFM_STEP = _REC.intern("cfm.call"), _REC.intern("cfm.step")
 
 
 def interpolate_nearest(x: torch.Tensor, scale: float) -> torch.Tensor:
@@ -326,8 +330,13 @@ def cfm_inference(dit: DiT, mu, x_lens, prompt, *, noise=None, generator=None, n
     (B, T, mel) f32 when given, else drawn in f32 from `generator`; either
     way scaled by temperature and cast to mu's dtype. pad_t_to > 0 pads T to
     a multiple of it (pad frames are masked, so real frames do not move).
-    Returns (B, T, mel) in mu's dtype."""
+    Returns (B, T, mel) in mu's dtype.
+
+    Recorded (utils/metrics.py): a `cfm.call` span (attributes: chunks B,
+    frames T, steps) and inside it a `cfm.step` span an Euler step (its
+    index), each the host's time to issue the step's work."""
     b, t = mu.shape[0], mu.shape[1]
+    call = _REC.begin(_CFM_CALL)
     mel_dim = dit.cfg.mel_dim
     dev, dtype = mu.device, mu.dtype
     if noise is None:
@@ -349,6 +358,7 @@ def cfm_inference(dit: DiT, mu, x_lens, prompt, *, noise=None, generator=None, n
     d = 1.0 / n_steps
     d_vec = torch.full((b,), d, dtype=dtype, device=dev)
 
+    step = _REC.begin(_CFM_STEP)
     v0, text_embed = dit(x, prompt_x, torch.zeros((b,), dtype=dtype, device=dev), d_vec, mu, mask)
     neg_text_embed = None
     if cfg_rate > 1e-5:
@@ -356,11 +366,15 @@ def cfm_inference(dit: DiT, mu, x_lens, prompt, *, noise=None, generator=None, n
                                  drop_audio_cond=True, drop_text=True)
         v0 = v0 + (v0 - n0) * cfg_rate
     x = torch.where(region, zero, x + d * v0)
+    _REC.end(step, 0)
     for i in range(1, n_steps):
+        step = _REC.begin(_CFM_STEP)
         t_vec = torch.full((b,), i * d, dtype=dtype, device=dev)
         v, _ = dit(x, prompt_x, t_vec, d_vec, mu, mask, text_embed_cache=text_embed)
         if neg_text_embed is not None:
             n, _ = dit(x, prompt_x, t_vec, d_vec, mu, mask, drop_audio_cond=True, text_embed_cache=neg_text_embed)
             v = v + (v - n) * cfg_rate
         x = torch.where(region, zero, x + d * v)
+        _REC.end(step, i)
+    _REC.end(call, b, t_real, n_steps)
     return x[:, :t_real]

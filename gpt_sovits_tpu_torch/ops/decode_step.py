@@ -36,6 +36,7 @@ import torch
 
 from gpt_sovits_tpu_torch.ops import build
 from gpt_sovits_tpu_torch.ops.qmatmul import refuse_grad, refuse_trace
+from gpt_sovits_tpu_torch.utils.metrics import recorder
 
 NEG = -1e30
 # launch geometry, as csrc/decode_step.cu defines it
@@ -46,6 +47,10 @@ STEP_DIMS = (512, 2048, 16)  # the (D, F, heads) the whole-step kernel is built 
 
 # the kernel, as gsv_launch_counts reports its launches
 KERNELS = ("fused_decode_step",)
+# while tracing is on, each launch is recorded under its device kernel's name
+# (utils/metrics.py Recorder.launch)
+_REC = recorder()
+_K_STEP = _REC.intern("step_kernel")
 
 
 def launch_counts() -> dict:
@@ -479,6 +484,7 @@ def _step_cuda(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads, plan
     slot_r, splits = step_plan(max(slots), int8_kv, plan_sweep)
     ptrs = lambda keys: (ctypes.c_void_p * len(keys))(*(weights[k].data_ptr() for k in keys))  # noqa: E731
     stream = _stream(x)
+    _REC.launch(_K_STEP)
     rc = _lib().gsv_decode_step(
         x.data_ptr(), h.data_ptr(), ptrs(MATS), ptrs([f"{k}_s" for k in MATS]) if quant else None, ptrs(VECS),
         kv_cache.data_ptr(), kv_scales.data_ptr() if int8_kv else None, mask.data_ptr(),

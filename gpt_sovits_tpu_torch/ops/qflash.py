@@ -20,12 +20,17 @@ import torch
 
 from gpt_sovits_tpu_torch.ops import build
 from gpt_sovits_tpu_torch.ops.qmatmul import INV127, check, on_card, raise_on, refuse_grad, refuse_trace
+from gpt_sovits_tpu_torch.utils.metrics import recorder
 
 HEAD_DIM = 64  # the only head width the kernel takes
 KEY_TILE = 128  # keys per tile (csrc/qflash.cu KB): V's int8 copy is padded to it
 
 # the kernels, in the order gsv_qflash_launch_counts reports their launches
 KERNELS = ("v_quant", "flash_attn_int8")
+# while tracing is on, each launch is recorded under its device kernel's name
+# (utils/metrics.py Recorder.launch)
+_REC = recorder()
+_K_V_QUANT, _K_FLASH = _REC.intern("v_quant_kernel"), _REC.intern("flash_attn_wgmma_kernel")
 
 
 def launch_counts() -> dict:
@@ -108,7 +113,9 @@ def flash_attn_int8(q, k, v, mask=None, *, sm_scale: float):
     out = torch.empty((b, t, h * dh), dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _lib()
+    _REC.launch(_K_V_QUANT)
     raise_on(lib.gsv_v_quant(v.data_ptr(), v8t.data_ptr(), sv.data_ptr(), b * h, t, t_pad, stream), "v_quant")
+    _REC.launch(_K_FLASH)
     rc = lib.gsv_flash_attn(
         q.data_ptr(), k.data_ptr(), v8t.data_ptr(), sv.data_ptr(), mask.data_ptr() if mask is not None else None,
         out.data_ptr(), b, h, t, t_pad, float(sm_scale), stream,

@@ -25,6 +25,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensor
 
 from gpt_sovits_tpu_torch.ops import build
+from gpt_sovits_tpu_torch.utils.metrics import recorder
 
 INV127 = float(np.float32(1.0 / 127.0))
 LN_EPS = 1e-6
@@ -37,6 +38,12 @@ MAX_K = 2048  # row_quant holds a row of at most this many values
 
 # the kernels, in the order gsv_qmm_launch_counts reports their launches
 KERNELS = ("row_quant", "qdense_int8", "qkv_rope_int8", "row_quant_heads", "qdense_out_int8")
+# while tracing is on, each launch is recorded under its device kernel's name
+# (utils/metrics.py Recorder.launch): row_quant and row_quant_heads launch
+# row_quant_kernel, K2 and K4 qdense_wgmma_kernel
+_REC = recorder()
+_K_ROW_QUANT, _K_QDENSE, _K_QKV = (_REC.intern(n) for n in ("row_quant_kernel", "qdense_wgmma_kernel",
+                                                              "qkv_rope_wgmma_kernel"))
 
 
 def launch_counts() -> dict:
@@ -271,6 +278,7 @@ def _row_quant(x, ln_mod):
     dev = x.device
     xq = torch.empty((b * t, k), dtype=torch.int8, device=dev)
     sx = torch.empty((b * t,), dtype=torch.float32, device=dev)
+    _REC.launch(_K_ROW_QUANT)
     rc = _lib().gsv_row_quant(
         x.data_ptr(), ln_mod[0].data_ptr() if ln_mod is not None else None,
         ln_mod[1].data_ptr() if ln_mod is not None else None, xq.data_ptr(), sx.data_ptr(),
@@ -297,6 +305,7 @@ def _gemm(xq, sx, wq, sw, bias, res, gate, mask, t: int, *, gelu: bool = False, 
             res.data_ptr() if res is not None else None, gate.data_ptr() if gate is not None else None,
             mask.data_ptr() if mask is not None else None, out.data_ptr(), m, n, k, t)
     stream = torch.cuda.current_stream(xq.device).cuda_stream
+    _REC.launch(_K_QDENSE)
     if heads_in:
         raise_on(_lib().gsv_qdense_out(*ptrs, tile_n, grid_m, stream), "qdense_out_int8")
     else:
@@ -362,6 +371,7 @@ def _qkv_gemm(xq, sx, ws, ss, bs, b: int, t: int, dim_head: int, q_scale: float,
         raise ValueError(f"qkv_rope tiles are {GEMM_TILES_N} columns wide, got {tile_n}")
     cos, sin = _rope_cached(t, dim_head, dev)
     outs = tuple(torch.empty((b, n // dim_head, t, dim_head), dtype=torch.bfloat16, device=dev) for _ in range(3))
+    _REC.launch(_K_QKV)
     rc = _lib().gsv_qkv_rope(
         xq.data_ptr(), sx.data_ptr(), *(w.data_ptr() for w in ws), *(s.data_ptr() for s in ss),
         *(v.data_ptr() for v in bs), cos.data_ptr(), sin.data_ptr(), *(o.data_ptr() for o in outs),
@@ -432,6 +442,7 @@ def qdense_out_int8(attn, wq, sw, bias, res_gate_mask=None):
     lib = _lib()
     xq = torch.empty((b * t, k), dtype=torch.int8, device=dev)
     sx = torch.empty((b * t,), dtype=torch.float32, device=dev)
+    _REC.launch(_K_ROW_QUANT)
     raise_on(lib.gsv_row_quant_heads(attn.data_ptr(), xq.data_ptr(), sx.data_ptr(), b * t, k, t, dh, stream),
              "row_quant_heads")
     return _gemm(xq, sx, wq, sw, bias, res, gate, mask, t, heads_in=True)

@@ -33,9 +33,14 @@ import torch.nn.functional as F
 from gpt_sovits_tpu_torch import at_least_f32
 from gpt_sovits_tpu_torch.ops import build
 from gpt_sovits_tpu_torch.ops.qmatmul import check, on_card, raise_on, refuse_grad, refuse_trace
+from gpt_sovits_tpu_torch.utils.metrics import recorder
 
 TAPS = 12  # filter taps of the x2 resampling (csrc/snake_aa.cu TAPS)
 KERNELS = ("snake_aa",)
+# while tracing is on, each launch is recorded under its device kernel's name
+# (utils/metrics.py Recorder.launch)
+_REC = recorder()
+_K_SNAKE = _REC.intern("snake_aa_kernel")
 # the kernel's geometry (csrc/snake_aa.cu R, THREADS): a thread owns a chunk
 # of OUTPUTS consecutive outputs of one row
 OUTPUTS = 8
@@ -269,6 +274,7 @@ def snake_aa(x, alpha, beta, *, logscale: bool = True):
         raise TypeError(f"x: dtype {x.dtype}, expected bfloat16 or float32")
     refuse_grad("snake_aa", x, alpha, beta)
     y = torch.empty_like(x)
+    _REC.launch(_K_SNAKE)
     rc = _lib().gsv_snake_aa(
         x.data_ptr(), alpha.data_ptr(), beta.data_ptr(), y.data_ptr(), b * c, c, t, int(logscale),
         int(x.dtype == torch.bfloat16), _CONSTS, plan.tiles, plan.threads, plan.outputs,

@@ -14,6 +14,12 @@ decodes with old S1 weights while S2 uses new ones.
 Threads: one scheduler thread steps the pool (a batcher is warmed up
 before that thread sees it, so no two threads ever step one pool), two
 finisher threads run S2.
+
+Each job has a process-unique `id`. The recorder (`utils/metrics.py`)
+takes a `serve.submit` span a `submit` (the text frontend and the enqueue,
+on the caller's thread) and an `s2.job` span a job on its finisher thread
+(attribute: segments), with children `s2.launch`, `s2.fetch` and
+`s2.join`; the pool's own records are the batcher's (infer/continuous.py).
 Every device call happens under `torch.no_grad`, which each thread enters
 itself (the batcher's `step` and `_finish` here are decorated with it).
 """
@@ -33,6 +39,10 @@ import torch
 from gpt_sovits_tpu_torch.infer.continuous import ContinuousBatcher
 from gpt_sovits_tpu_torch.infer.pipeline import _next_bucket, snap_speed
 from gpt_sovits_tpu_torch.models.t2s import GenResult
+from gpt_sovits_tpu_torch.utils.metrics import next_request_id, recorder
+
+_REC = recorder()
+_SUBMIT, _S2_JOB = _REC.intern("serve.submit"), _REC.intern("s2.job")
 
 
 @dataclass(eq=False)  # identity semantics: jobs are deduplicated with set()
@@ -44,6 +54,7 @@ class Job:
     ref: object  # the RefCache snapshot at submit time
     speed: float
     fragment_interval: float
+    id: int = -1  # process-unique (utils/metrics.py next_request_id)
     done: threading.Event = field(default_factory=threading.Event)
     tokens: dict = field(default_factory=dict)  # rid -> np token array
     audio: Optional[np.ndarray] = None
@@ -121,33 +132,39 @@ class ContinuousTTSService:
     ) -> Job:
         """Queue a request's segments on the pool and return its job (see
         `synthesize`; `result` waits for it)."""
-        p = self.pipeline
-        ref = ref if ref is not None else p.ref
-        if ref is None:
-            raise RuntimeError("call pipeline.set_ref_audio first")
-        segments = p.preprocess(text, language, text_split_method or p.cfg.text_split_method)
-        if not segments:
-            raise ValueError("no synthesizable text")
-        prompt = np.asarray(ref.prompt_semantic, np.int64)
-        job = Job(rids=[], segments=segments, ref=ref, speed=speed,
-                  fragment_interval=p.cfg.fragment_interval if fragment_interval is None else fragment_interval)
-        with self._wake:
-            while self._draining and self._running:
-                self._wake.wait(timeout=0.5)
-            if not self._running:
-                raise RuntimeError("service closed")
-            for i, seg in enumerate(segments):
-                rid = self.cb.submit(
-                    np.asarray(seg["phones"], np.int64), np.asarray(seg["bert"], np.float32), prompt,
-                    # segment i of a seeded request has a stream of its own
-                    seed=None if seed is None else seed * 1009 + i,
-                    top_k=top_k, top_p=top_p, temperature=temperature, repetition_penalty=repetition_penalty,
-                )
-                job.rids.append(rid)
-                self._jobs[rid] = job
-            self._inflight += 1
-            self._wake.notify()
-        return job
+        job_id = next_request_id()
+        seq = _REC.begin(_SUBMIT, job_id)
+        try:
+            p = self.pipeline
+            ref = ref if ref is not None else p.ref
+            if ref is None:
+                raise RuntimeError("call pipeline.set_ref_audio first")
+            segments = p.preprocess(text, language, text_split_method or p.cfg.text_split_method)
+            if not segments:
+                raise ValueError("no synthesizable text")
+            prompt = np.asarray(ref.prompt_semantic, np.int64)
+            job = Job(rids=[], segments=segments, ref=ref, speed=speed,
+                      fragment_interval=p.cfg.fragment_interval if fragment_interval is None else fragment_interval,
+                      id=job_id)
+            with self._wake:
+                while self._draining and self._running:
+                    self._wake.wait(timeout=0.5)
+                if not self._running:
+                    raise RuntimeError("service closed")
+                for i, seg in enumerate(segments):
+                    rid = self.cb.submit(
+                        np.asarray(seg["phones"], np.int64), np.asarray(seg["bert"], np.float32), prompt,
+                        # segment i of a seeded request has a stream of its own
+                        seed=None if seed is None else seed * 1009 + i,
+                        top_k=top_k, top_p=top_p, temperature=temperature, repetition_penalty=repetition_penalty,
+                    )
+                    job.rids.append(rid)
+                    self._jobs[rid] = job
+                self._inflight += 1
+                self._wake.notify()
+            return job
+        finally:
+            _REC.end(seq)
 
     def result(self, job: Job, timeout: float = 600.0) -> tuple[int, np.ndarray]:
         """Wait for a job -> (sample rate, int16 audio)."""
@@ -227,10 +244,13 @@ class ContinuousTTSService:
                     self._finisher.submit(self._finish_job, job)
 
     def _finish_job(self, job: Job) -> None:
+        seq = _REC.begin(_S2_JOB, job.id)
         try:
             job.audio = self._finish(job)
         except Exception as e:  # reported to the request's caller
             job.error = e
+        finally:
+            _REC.end(seq, len(job.segments))
         job.done.set()
 
     @torch.no_grad()
@@ -240,17 +260,21 @@ class ContinuousTTSService:
         inter-fragment silence."""
         p = self.pipeline
         segs = job.segments
-        toks = [job.tokens[r] for r in job.rids]
-        lengths = [len(t) for t in toks]
-        codes = np.zeros((len(segs), self.cb.max_new), np.int64)
-        for i, t in enumerate(toks):
-            codes[i, : len(t)] = t
-        dev = p.device
-        s1 = (GenResult(torch.from_numpy(codes).to(dev), torch.tensor(lengths, device=dev), 0),
-              _next_bucket(max(len(s["phones"]) for s in segs)))
-        wavs = p._s2_fetch(p._s2_launch(segs, s1, max(lengths), speed=snap_speed(job.speed), ref=job.ref))
-        silence = np.zeros(int(p.mel_cfg.sampling_rate * job.fragment_interval), np.float32)
-        pieces = []
-        for w in wavs:
-            pieces += [w, silence]
-        return np.concatenate(pieces[:-1])
+        with _REC.span("s2.launch", job.id):
+            toks = [job.tokens[r] for r in job.rids]
+            lengths = [len(t) for t in toks]
+            codes = np.zeros((len(segs), self.cb.max_new), np.int64)
+            for i, t in enumerate(toks):
+                codes[i, : len(t)] = t
+            dev = p.device
+            s1 = (GenResult(torch.from_numpy(codes).to(dev), torch.tensor(lengths, device=dev), 0),
+                  _next_bucket(max(len(s["phones"]) for s in segs)))
+            state = p._s2_launch(segs, s1, max(lengths), speed=snap_speed(job.speed), ref=job.ref)
+        with _REC.span("s2.fetch", job.id):
+            wavs = p._s2_fetch(state)
+        with _REC.span("s2.join", job.id):
+            silence = np.zeros(int(p.mel_cfg.sampling_rate * job.fragment_interval), np.float32)
+            pieces = []
+            for w in wavs:
+                pieces += [w, silence]
+            return np.concatenate(pieces[:-1])

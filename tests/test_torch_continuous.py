@@ -5,6 +5,8 @@ weights drawn from a seed with numpy (test_torch_pipeline.random_params)
 and carried over by weights.s1_from_jax. Greedy tokens are compared for
 equality; the int8-KV pool at the JAX test's agreement bar (0.8)."""
 
+import time
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,7 @@ from gpt_sovits_tpu_torch.infer.continuous import ContinuousBatcher, filter_logi
 from gpt_sovits_tpu_torch.models.t2s import T2SDecoder, filter_logits, generate
 from gpt_sovits_tpu_torch.ops import decode_step as ds
 from gpt_sovits_tpu_torch.utils.config import S1Config
+from gpt_sovits_tpu_torch.utils.metrics import recorder
 from gpt_sovits_tpu_torch.weights import s1_from_jax
 from test_torch_pipeline import random_params
 
@@ -94,19 +97,70 @@ def test_single_request_matches_generate_and_jax(models):
     assert cb.pending == 0 and cb.steps_run == 7 * cb._segments_run
 
 
+def _since(spans: dict, t_from: int) -> dict:
+    keep = spans["t0"] >= t_from
+    return {c: v[keep] for c, v in spans.items()}
+
+
 def test_staggered_admission_matches_generate_and_jax(models):
     jm, params, m = models
     max_new = 24
     reqs = [_mk_request(s) for s in (2, 3, 4)]
     cb = _pool(m, 2, max_new)
+    t_from = time.perf_counter_ns()
     rids, got = _staggered(cb, reqs)
     jrids, jgot = _staggered(_jpool(jm, params, 2, max_new), reqs)
     for rid, jrid, req in zip(rids, jrids, reqs):
         np.testing.assert_array_equal(got[rid], _generate_tokens(m, *req, max_new))
         np.testing.assert_array_equal(got[rid], jgot[jrid])
     # request 1 was admitted before request 0 finished: a join mid-decode
-    assert cb.admitted_at[rids[1]] < cb.finished_at[rids[0]]
+    snap = recorder().snapshot()
+    admitted = _since(snap.spans_named("pool.queue"), t_from)
+    evicted = _since(snap.spans_named("pool.evict"), t_from)
+    admitted_at = dict(zip(admitted["rid"].tolist(), admitted["t1"].tolist()))
+    finished_at = dict(zip(evicted["rid"].tolist(), evicted["t0"].tolist()))
+    assert admitted_at[rids[1]] < finished_at[rids[0]]
     assert cb.peak_live == 2
+
+
+def test_pool_records_queue_waits_admissions_passes_and_row_steps(models):
+    """Every row's queue wait ends at its admission; each pass records its
+    steps and the rows it advanced, as its segment does; the decoded
+    row-steps the flag copies count equal the tokens returned less each
+    row's first (the admission's draw), and never exceed the segments'
+    steps times their rows."""
+    _, _, m = models
+    max_new, n = 16, 5
+    reqs = [_mk_request(30 + s, tx=8 + s) for s in range(5)]
+    cb = _pool(m, 2, max_new, top_k=5, temperature=1.0)
+    t_from = time.perf_counter_ns()
+    rids = [cb.submit(*r) for r in reqs]
+    got = cb.drain(n=n)
+    snap = recorder().snapshot()
+    queue = _since(snap.spans_named("pool.queue"), t_from)
+    admits = _since(snap.spans_named("pool.admit"), t_from)
+    passes = _since(snap.spans_named("pool.pass"), t_from)
+    segments = _since(snap.spans_named("pool.segment"), t_from)
+    assert sorted(queue["rid"].tolist()) == sorted(rids) and (queue["t1"] >= queue["t0"]).all()
+    assert set(queue["parent"].tolist()) <= set(admits["seq"].tolist())
+    assert sum(admits["attr"][:, 0].tolist()) == len(rids)
+    for child in ("pool.prefill", "pool.draw", "pool.install"):
+        assert set(_since(snap.spans_named(child), t_from)["parent"].tolist()) == set(admits["seq"].tolist())
+    assert len(passes["seq"]) == cb._segments_run + (passes["attr"][:, 0] == 0).sum()
+    assert passes["attr"][:, 0].sum() == cb.steps_run == segments["attr"][:, 0].sum()
+    assert set(segments["parent"].tolist()) <= set(passes["seq"].tolist())
+    assert (passes["attr"][:, 1] >= 0).all() and (passes["attr"][:, 2] == 0).all()  # no copy waits on the CPU
+    seg_rows = dict(zip(segments["parent"].tolist(), segments["attr"][:, 1].tolist()))
+    assert [seg_rows.get(int(q), 0) for q in passes["seq"]] == passes["attr"][:, 3].tolist()
+    assert 0 < passes["attr"][:, 3].max() <= 2
+    decoded = sum(_since_counts(snap, "pool.decoded_row_steps", t_from))
+    installed = int((segments["attr"][:, 0] * segments["attr"][:, 1]).sum())
+    assert decoded == sum(len(got[r]) - 1 for r in rids) and 0 < decoded <= installed
+
+
+def _since_counts(snap, name: str, t_from: int) -> list:
+    c = snap.counts_named(name)
+    return c["value"][c["t"] >= t_from].tolist()
 
 
 def test_more_requests_than_slots(models):

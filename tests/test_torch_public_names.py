@@ -3,12 +3,15 @@ each against its JAX counterpart on the CPU: dsp/sola.py `chunk_plan`,
 utils/config.py `MeshConfig`, `asdict`, `to_json` and `replace`,
 `VQCodebook.encode_with`, utils/metrics.py `ThroughputMeter` (`measure`,
 `as_dict`, `audio_s_per_s_per_chip`) and `profile_trace` (a Chrome trace
-file on torch.profiler where JAX writes an xprof trace), and
+file on torch.profiler where JAX writes an xprof trace, with the port's
+recorded spans of every thread), and
 SynthesizerTrnV3b's `compute_ge`, `extract_latent` and `dit_config`."""
 
 import dataclasses
 import json
 import shutil
+import threading
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -64,12 +67,32 @@ def test_throughput_meter_is_jaxs():
 
 
 def test_profile_trace_writes_a_trace(tmp_path):
+    """The Chrome trace holds the profiler's events and the recorder's spans
+    of every thread over the block, on the profiler's clock: a span from a
+    second thread lies between the block's first and last profiled event."""
+    def worker(tid):
+        tid.append(threading.get_native_id())
+        with metrics.recorder().span("test.second_thread", 5):
+            time.sleep(0.005)
+
     try:
+        tid = []
         with metrics.profile_trace(str(tmp_path / "trace")) as prof:
             torch.randn(64, 64) @ torch.randn(64, 64)
-        assert prof is not None
+            th = threading.Thread(target=worker, args=(tid,))
+            th.start()
+            th.join(timeout=60)
+            torch.randn(8) + 1
+        assert prof is not None and not th.is_alive()
         trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
         assert any("mm" in str(e.get("name", "")) for e in trace["traceEvents"])
+        spans = [e for e in trace["traceEvents"] if e.get("name") == "test.second_thread"]
+        assert len(spans) == 1 and spans[0]["tid"] == tid[0] != threading.get_native_id()
+        assert spans[0]["args"]["rid"] == 5 and spans[0]["dur"] >= 5000
+        ops = [e for e in trace["traceEvents"] if e.get("ph") == "X" and e.get("cat") == "cpu_op"]
+        mm = min(e["ts"] for e in ops if "mm" in e["name"])
+        add = max(e["ts"] + e["dur"] for e in ops if e["name"] == "aten::add")
+        assert mm < spans[0]["ts"] and spans[0]["ts"] + spans[0]["dur"] < add
     finally:
         shutil.rmtree(tmp_path, ignore_errors=True)
 

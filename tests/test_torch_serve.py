@@ -27,6 +27,7 @@ from gpt_sovits_tpu_torch.infer.continuous import ContinuousBatcher
 from gpt_sovits_tpu_torch.serve import api as api_mod
 from gpt_sovits_tpu_torch.serve.api import TTSService, serve, wav_bytes
 from gpt_sovits_tpu_torch.serve.continuous_service import ContinuousTTSService
+from gpt_sovits_tpu_torch.utils.metrics import recorder
 from test_torch_pipeline import pipes  # noqa: F401  (the tiny pipelines, one pair for this module)
 
 torch.set_num_threads(1)
@@ -136,6 +137,31 @@ def test_concurrent_requests_share_the_pool(service):
         n_tok = [len(job.tokens[r]) for r in job.rids]
         assert audio.dtype == np.int16 and len(audio) == sum(n_tok) * hop + (len(n_tok) - 1) * silence
     assert service.cb.peak_live == 2  # two rows decoded at once in the two-slot pool
+
+
+def test_one_s2_job_span_per_job(service):
+    """Each job gets a process-unique id; its submit is one `serve.submit`
+    span and its S2 one `s2.job` span on a finisher thread, with the launch,
+    fetch and join inside it, all under the job's id."""
+    t_from = time.perf_counter_ns()
+    jobs = [service.submit(t, "en") for t in ("one job here", "and a second. with two segments!")]
+    for j in jobs:
+        service.result(j, timeout=120)
+    snap = recorder().snapshot()
+
+    def spans(name):
+        sp = snap.spans_named(name)
+        return {c: v[sp["t0"] >= t_from] for c, v in sp.items()}
+
+    ids = sorted(j.id for j in jobs)
+    assert len(set(ids)) == 2 and sorted(spans("serve.submit")["rid"].tolist()) == ids
+    s2 = spans("s2.job")
+    assert sorted(s2["rid"].tolist()) == ids
+    assert sorted(s2["attr"][:, 0].tolist()) == sorted(len(j.segments) for j in jobs)
+    assert threading.get_native_id() not in s2["thread"].tolist()
+    for child in ("s2.launch", "s2.fetch", "s2.join"):
+        c = spans(child)
+        assert sorted(c["rid"].tolist()) == ids and set(c["parent"].tolist()) == set(s2["seq"].tolist())
 
 
 def test_threads_share_the_pool(service):
