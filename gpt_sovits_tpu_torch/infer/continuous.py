@@ -32,6 +32,16 @@ fused S1 step (K1, ops/decode_step.py) on a card or the plain
   * No device value is read back to size a step: the host keeps a mirror
     of each slot's step count, from which it passes K1 the rows' write
     slots as a host list.
+  * A step is K1's launch and a tail (`ContinuousBatcher._tail`: the mask
+    write, the head, the sampler, the state updates: some 70 small
+    kernels). On a card in fused mode the tail runs as one CUDA graph
+    replay (`_TailGraph`, captured at the pool's first step, which `warmup`
+    runs), launched with the interpreter lock held, so the host issues two
+    launches a step; elsewhere it runs eagerly, the same function. The tail
+    reads only tensors at fixed addresses: the slot state, K1's output
+    buffer, and a segment's write slots and uniforms staged on the device
+    (one copy each a segment), of which it takes the row of a device step
+    index that it advances itself.
   * The recorder (`utils/metrics.py`) takes, on the scheduler's thread: a
     `pool.pass` span a `step()` (attributes: steps, the thread's CPU time
     outside the copy waits, the wall time blocked on copies, installed
@@ -42,10 +52,11 @@ fused S1 step (K1, ops/decode_step.py) on a card or the plain
     a device-to-host copy's event) and, on a card, `pool.sync_upload` (an
     admission's plain host-to-device copy, which waits for the stream to
     drain first), each with its CPU time as attribute; a `pool.evict`
-    mark a finished row (its length); and the counter
+    mark a finished row (its length); the counter
     `pool.decoded_row_steps`, stamped at each flag copy's capture: the
     installed rows' growth in length since the copy before, as the copy
-    reads it.
+    reads it; and the counter `pool.graph_steps`, stamped inside each
+    `pool.segment` span: its steps whose tail was a graph replay.
 
 Slot cache layout (per row, T_total = tx_max + tp_max + 1 + max_new rounded
 up to 512):
@@ -63,7 +74,9 @@ its K and V halves through views.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 import os
 import threading
 import time
@@ -84,7 +97,7 @@ _PASS, _ADMIT, _PREFILL, _DRAW, _INSTALL, _QUEUE, _SEGMENT, _SYNC_FLAGS, _SYNC_T
     _REC.intern(n) for n in ("pool.pass", "pool.admit", "pool.prefill", "pool.draw", "pool.install", "pool.queue",
                              "pool.segment", "pool.sync_flags", "pool.sync_tokens", "pool.sync_upload",
                              "pool.evict"))
-_DECODED_ROW_STEPS = _REC.intern("pool.decoded_row_steps")
+_DECODED_ROW_STEPS, _GRAPH_STEPS = _REC.intern("pool.decoded_row_steps"), _REC.intern("pool.graph_steps")
 
 
 def filter_logits_rows(logits, presence, top_k, top_p, temperature, rep_penalty):
@@ -219,6 +232,52 @@ class _Fetch:
         return self.host.numpy()
 
 
+@functools.cache
+def _cu_graph_launch():
+    """The driver's cuGraphLaunch(exec, stream), through `ctypes.PyDLL`: a
+    call that keeps the interpreter lock."""
+    fn = ctypes.PyDLL("libcuda.so.1").cuGraphLaunch
+    fn.argtypes, fn.restype = (ctypes.c_void_p, ctypes.c_void_p), ctypes.c_int
+    return fn
+
+
+class _TailGraph:
+    """A pool step's tail captured as one CUDA graph, replayed on the
+    current stream. The capture stream first runs the tail eagerly, which
+    is the current step's own work and makes that stream's cuBLAS and sort
+    workspaces, then records it; the thread-local capture mode leaves the
+    other threads (the S2 finishers) free to launch meanwhile."""
+
+    def __init__(self, tail, device):
+        self.device = device
+        cur = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(cur)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            tail()
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                tail()
+            finally:
+                self.graph.capture_end()
+        cur.wait_stream(side)
+        self._exec = ctypes.c_void_p(self.graph.raw_cuda_graph_exec())
+
+    def replay(self) -> None:
+        """The graph's launch on the current stream, with the interpreter
+        lock held. `CUDAGraph.replay` releases the lock around its launch,
+        and a torch.profiler session stopping on another thread, which
+        holds the lock through `_disable_profiler`, deadlocked with such a
+        launch. Held, a launch and a profiler's start or stop never overlap.
+        The tail draws no device random numbers, so the launch is the whole
+        replay (torch's adds only its generators' offsets)."""
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        rc = _cu_graph_launch()(self._exec, ctypes.c_void_p(stream))
+        if rc != 0:
+            raise RuntimeError(f"cuGraphLaunch failed: CUresult {rc}")
+
+
 class ContinuousBatcher:
     """Host-side scheduler over the slot pool.
 
@@ -235,6 +294,9 @@ class ContinuousBatcher:
     takes 1..MAX_ROWS rows, so a larger pool raises instead of falling back
     to the plain step; the plain step on the CPU. False: the plain step,
     the caller's choice. Both work on the same K||V cache layout.
+
+    On a card in fused mode each step's tail is a CUDA graph replay
+    (`graph_captures` counts the captures: one a pool).
     """
 
     def __init__(
@@ -304,6 +366,16 @@ class ContinuousBatcher:
             rep_penalty=torch.full((b,), repetition_penalty, device=dev),
         )
         self._rows = torch.arange(b, device=dev)
+        # what the step's tail reads besides the slot state, at addresses
+        # fixed for a graph's replays: K1's output, a segment's write slots
+        # and uniforms (up to max_new steps, B), the step's row of them
+        self._y = torch.zeros((b, d), device=dev) if use_fused else None
+        self._x = self.state.tok_emb[:, 0]  # K1's input: a view of the last tokens' embeddings
+        self._slots_dev = torch.zeros((max_new, b), dtype=torch.long, device=dev)
+        self._uniform_dev = torch.zeros((max_new, b), device=dev)
+        self._step_i = torch.zeros((1,), dtype=torch.long, device=dev)
+        self._graph: Optional[_TailGraph] = None
+        self.graph_captures = 0
         # the plain step's K and V caches (L, B, T, H, Dh): views of the K||V halves
         kv6 = self.state.kv.view(n_l, b, self.t_total, 2, h, d // h)
         self._kv_halves = (kv6[:, :, :, 0], kv6[:, :, :, 1])
@@ -340,8 +412,9 @@ class ContinuousBatcher:
     def warmup(self, segment: int = 25) -> None:
         """One full admission (prefill, install, first draw), one segment
         of steps and its flag copy, so that the first real requests pay no
-        first-use cost (K1's build, the allocator's growth); then the dummy
-        rows are dropped where they stand and the pool is left empty."""
+        first-use cost (K1's build, the allocator's growth, on a card the
+        tail's graph capture); then the dummy rows are dropped where they
+        stand and the pool is left empty."""
         cfg = self.model.cfg
         dummy = (np.ones(4, np.int64), np.zeros((4, cfg.bert_dim), np.float32), np.zeros(4, np.int64))
         for _ in range(self.slots):
@@ -549,38 +622,76 @@ class ContinuousBatcher:
         uniform = np.zeros((n, b), np.float32)
         for i in np.flatnonzero(installed):
             uniform[:, i] = self._draws[i].random(n, dtype=np.float32)
-        slots_dev, uniform_dev = self._upload(slots), self._upload(uniform)
+        self._stage(slots, uniform)
         seq = _REC.begin(_SEGMENT)
+        replays = 0
         for i in range(n):
-            self._decode_one(slots[i].tolist(), slots_dev[i], uniform_dev[i])
+            replays += self._decode_one(slots[i].tolist())
+        _REC.count(_GRAPH_STEPS, replays)
         _REC.end(seq, n, int(installed.sum()))
         self._count = np.where(installed, np.minimum(self._count + n, self.max_new), 0)
         self.steps_run += n
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """A host array to the device, through pinned memory on a card (the
-        copy does not block the host)."""
-        t = torch.from_numpy(a)
-        if self.device.type != "cuda":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+    def _stage(self, slots: np.ndarray, uniform: np.ndarray) -> None:
+        """A segment's write slots and uniforms (n, B) into the device
+        buffers the tail reads its step's row from, one copy each (through
+        pinned memory on a card: the copy does not block the host), and the
+        step index back to row 0. The buffers hold max_new steps: by then
+        every row the segment started with is done, so the steps of a
+        longer segment after those read the last row."""
+        n = min(slots.shape[0], self.max_new)
+        cuda = self.device.type == "cuda"
+        for a, dst in ((slots[:n], self._slots_dev), (uniform[:n], self._uniform_dev)):
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            dst[:n].copy_(t.pin_memory() if cuda else t, non_blocking=cuda)
+        self._step_i.zero_()
 
-    def _decode_one(self, write_idx: list, write_dev: torch.Tensor, uniform: torch.Tensor) -> None:
-        """One pool step (`generate`'s loop body with per-row slots)."""
+    def _graphable(self) -> bool:
+        """Whether the step's tail runs as a CUDA graph: on a card, behind K1
+        (the plain step's tail runs eagerly)."""
+        return self.use_fused and self.device.type == "cuda"
+
+    def _decode_one(self, write_idx: list) -> bool:
+        """One pool step (`generate`'s loop body with per-row slots): in
+        fused mode K1's launch with the rows' write slots as a host list,
+        then the tail, a replay of its graph where the pool has one (the
+        first step on a card captures it). Returns whether the tail was a
+        replay."""
+        if self.use_fused:
+            s = self.state
+            # K1 adds the query's own fresh K/V itself, so it gets the mask
+            # from before the tail's update
+            ds.fused_decode_step(self._x, self.fused_weights, s.kv, s.mask, write_idx, s.kv_scales,
+                                 num_heads=self.model.cfg.num_heads, plan_sweep=self.plan_sweep, out=self._y)
+        if self._graph is not None:
+            self._graph.replay()
+            return True
+        if self._graphable():
+            self._graph = _TailGraph(self._tail, self.device)
+            self.graph_captures += 1
+        else:
+            self._tail()
+        return False
+
+    def _tail(self) -> None:
+        """A pool step after K1: the mask write, the logits (the f32 head on
+        K1's output, or the plain step), the EOS mask, the sampler and the
+        state updates, for the step whose write slots and uniforms are row
+        `_step_i` of the staged buffers; then `_step_i` moves on, to stop at
+        the buffers' last row. Every
+        tensor it reads or writes lives as long as the pool, and it reads
+        nothing back to the host, so it can run as a CUDA graph."""
         s = self.state
         cfg = self.model.cfg
         eos = cfg.eos_id
         rows = self._rows
+        write_dev = self._slots_dev.index_select(0, self._step_i)[0]
+        uniform = self._uniform_dev.index_select(0, self._step_i)[0]
         live = s.active & ~s.done
+        s.mask[rows, write_dev] = torch.maximum(s.mask[rows, write_dev], live.float())
         if self.use_fused:
-            # K1 adds the query's own fresh K/V itself, so it gets the mask
-            # from before the update
-            y = ds.fused_decode_step(s.tok_emb[:, 0].contiguous(), self.fused_weights, s.kv, s.mask, write_idx,
-                                     s.kv_scales, num_heads=cfg.num_heads, plan_sweep=self.plan_sweep)[0]
-            s.mask[rows, write_dev] = torch.maximum(s.mask[rows, write_dev], live.float())
-            logits = F.linear(y, self.head)
+            logits = F.linear(self._y, self.head)
         else:
-            s.mask[rows, write_dev] = torch.maximum(s.mask[rows, write_dev], live.float())
             logits = self.model.decode_step(s.tok_emb, *self._kv_halves, s.mask > 0, write_dev)
         logits[:, eos] = torch.where(s.gen_count < EOS_MASK_WARMUP_STEPS, float("-inf"), logits[:, eos])
         argmax_is_eos = logits.argmax(-1) == eos
@@ -596,6 +707,7 @@ class ContinuousBatcher:
         pos = torch.clamp(s.prompt_lens + s.gen_count, 0, cfg.max_len - 1)
         s.tok_emb.copy_(torch.where(live[:, None, None], self.model.embed_audio(tok[:, None], pos[:, None]), s.tok_emb))
         s.gen_count += keep
+        self._step_i.add_(1).clamp_max_(self.max_new - 1)
 
     # -- results ------------------------------------------------------------
 

@@ -327,7 +327,7 @@ def _slots(write_idx, b: int, t: int) -> list[int]:
     return [int(v) for v in slots]
 
 
-def _check_step(x, weights, kv_cache, mask, write_idx, kv_scales) -> list[int]:
+def _check_step(x, weights, kv_cache, mask, write_idx, kv_scales, out=None) -> list[int]:
     """Refuses what the step cannot take, before any work; returns the
     rows' slots (_slots)."""
     n_layers, b, t, d2 = kv_cache.shape
@@ -336,6 +336,10 @@ def _check_step(x, weights, kv_cache, mask, write_idx, kv_scales) -> list[int]:
         raise ValueError("int8 kv_cache requires kv_scales (L,B,2,T)")
     if x.shape != (b, d):
         raise ValueError(f"x: shape {tuple(x.shape)}, expected {(b, d)}")
+    if out is not None:
+        _check("out", out, torch.float32, (b, d), x.device)
+        if out.data_ptr() == x.data_ptr():
+            raise ValueError("out: must not be x (the step reads x while it writes out)")
     return _slots(write_idx, b, t)
 
 
@@ -364,8 +368,8 @@ def _result(x, kv_cache, kv_scales):
     return (x, kv_cache, kv_scales) if kv_cache.dtype == torch.int8 else (x, kv_cache)
 
 
-def _step_plain(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads):
-    slots = _check_step(x, weights, kv_cache, mask, write_idx, kv_scales)
+def _step_plain(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads, out=None):
+    slots = _check_step(x, weights, kv_cache, mask, write_idx, kv_scales, out)
     n_layers, b, _, d2 = kv_cache.shape
     d = d2 // 2
     int8_kv = kv_cache.dtype == torch.int8
@@ -383,6 +387,8 @@ def _step_plain(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads):
         hdn = proj_plain(xn, w("fc1", i), weights["b1"][i], sc("fc1", i), relu=True)
         y2 = proj_plain(hdn, w("fc2", i), weights["b2"][i], sc("fc2", i))
         x = add_layernorm_plain(xn, y2, weights["n2s"][i], weights["n2b"][i])
+    if out is not None:
+        x = out.copy_(x)
     # the new token's K/V go into the cache after all layers read it
     return _result(x, *_write_new_kv(kv_cache, kv_scales, kv_new, slots))
 
@@ -400,6 +406,23 @@ def _sync(device, stream: int) -> torch.Tensor:
     if key not in _SYNC:
         _SYNC[key] = torch.zeros(1, dtype=torch.int32, device=device)
     return _SYNC[key]
+
+
+_SCRATCH: dict = {}
+
+
+def _scratch(device, stream: int, b: int, d: int, f: int) -> tuple:
+    """The whole-step kernel's f32 scratch (qkv, ctx, attn, y2, hdn) for one
+    stream and shape, made once and reused by every launch on that stream,
+    which run in order. A step then allocates nothing: an allocation
+    releases the interpreter lock, and the serving pool's scheduler waits
+    to get it back from the S2 threads."""
+    key = (device, stream, b, d, f)
+    if key not in _SCRATCH:
+        f32 = dict(dtype=torch.float32, device=device)
+        _SCRATCH[key] = (torch.empty((b, 3 * d), **f32), *(torch.empty((b, d), **f32) for _ in range(3)),
+                         torch.empty((b, f), **f32))
+    return _SCRATCH[key]
 
 
 def step_splits(n_valid: int, kv_int8: bool) -> tuple[int, int]:
@@ -449,10 +472,10 @@ def check_step_request(device, d: int, f: int, num_heads: int, n_valid: int, kv_
     step_splits(n_valid, kv_int8)
 
 
-def _step_cuda(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads, plan_sweep=None):
+def _step_cuda(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads, plan_sweep=None, out=None):
     """The whole step in one launch of the persistent kernel
     (gsv_decode_step), which also writes the new token's K/V into the cache."""
-    slots = _check_step(x, weights, kv_cache, mask, write_idx, kv_scales)
+    slots = _check_step(x, weights, kv_cache, mask, write_idx, kv_scales, out)
     n_layers, b, t, d2 = kv_cache.shape
     d = d2 // 2
     dev = x.device
@@ -476,14 +499,11 @@ def _step_cuda(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads, plan
     for key, n in widths.items():
         _check(key, weights[key], torch.float32, (n_layers, 1, n), dev)
 
-    f32 = dict(dtype=torch.float32, device=dev)
-    h = torch.empty((b, d), **f32)
-    qkv = torch.empty((b, 3 * d), **f32)
-    ctx, attn, y2 = (torch.empty((b, d), **f32) for _ in range(3))
-    hdn = torch.empty((b, f), **f32)
+    stream = _stream(x)
+    h = torch.empty((b, d), dtype=torch.float32, device=dev) if out is None else out
+    qkv, ctx, attn, y2, hdn = _scratch(dev, stream, b, d, f)
     slot_r, splits = step_plan(max(slots), int8_kv, plan_sweep)
     ptrs = lambda keys: (ctypes.c_void_p * len(keys))(*(weights[k].data_ptr() for k in keys))  # noqa: E731
-    stream = _stream(x)
     _REC.launch(_K_STEP)
     rc = _lib().gsv_decode_step(
         x.data_ptr(), h.data_ptr(), ptrs(MATS), ptrs([f"{k}_s" for k in MATS]) if quant else None, ptrs(VECS),
@@ -499,20 +519,22 @@ def _step_cuda(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads, plan
 
 
 def fused_decode_step(x, weights, kv_cache, mask, write_idx, kv_scales=None, *, num_heads: int = 16,
-                      plan_sweep=None):
+                      plan_sweep=None, out=None):
     """Returns (hidden (B, D) f32, kv_cache) -- plus kv_scales in int8-KV
     mode -- with row i's new K||V written at its slot: write_idx, an int for
     every row or a (B,) integer tensor or sequence (a tensor on the card is
     read to the host once, to size the attention's splits; a list is not).
     Weights as built by `stack_weights_from_params`. plan_sweep: the sweep
     the kernel's split plan is chosen for (step_plan); the twins have no
-    splits. CUDA tensors run the whole-step kernel; CPU tensors run the
-    plain twins."""
+    splits. out: a (B, D) f32 tensor the hidden state is written into and
+    returned as (a caller that reads it at a fixed address: the serving
+    pool's CUDA graph); default a new tensor. CUDA tensors run the
+    whole-step kernel; CPU tensors run the plain twins."""
     if _route(x):
         refuse_trace("fused_decode_step", x)
         refuse_grad("fused_decode_step", x, *weights.values(), kv_cache, mask, kv_scales)
-        return _step_cuda(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads, plan_sweep)
-    return _step_plain(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads)
+        return _step_cuda(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads, plan_sweep, out)
+    return _step_plain(x, weights, kv_cache, mask, write_idx, kv_scales, num_heads, out)
 
 
 def fused_decode_step_plain(x, weights, kv_cache, mask, write_idx, kv_scales=None, *, num_heads: int = 16):

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from jax.experimental.pallas import tpu as pltpu
 
 from gpt_sovits_tpu.infer.continuous import SAMPLE_CAP
@@ -20,7 +21,7 @@ from gpt_sovits_tpu.models.t2s import T2SDecoder as JT2S
 from gpt_sovits_tpu.utils.config import S1Config as JS1Config
 from gpt_sovits_tpu_torch.infer import continuous as cont
 from gpt_sovits_tpu_torch.infer.continuous import ContinuousBatcher, filter_logits_rows, sample_token_rows
-from gpt_sovits_tpu_torch.models.t2s import T2SDecoder, filter_logits, generate
+from gpt_sovits_tpu_torch.models.t2s import EOS_MASK_WARMUP_STEPS, T2SDecoder, filter_logits, generate
 from gpt_sovits_tpu_torch.ops import decode_step as ds
 from gpt_sovits_tpu_torch.utils.config import S1Config
 from gpt_sovits_tpu_torch.utils.metrics import recorder
@@ -408,6 +409,160 @@ def test_warmup_leaves_an_empty_pool(models):
     req = _mk_request(95)
     rid = cb.submit(*req)
     np.testing.assert_array_equal(cb.drain(n=5)[rid], _generate_tokens(m, *req, 16))
+
+
+# -- the step's tail and its graph -------------------------------------------
+
+
+def _reference_segment(cb, n):
+    """A segment as the pool ran it before its step was split into K1 and a
+    tail: fresh tensors of the segment's write slots and uniforms, a step
+    indexing its row by the host loop, K1's output a new tensor."""
+    installed = np.array([r is not None for r in cb._slot_rid])
+    g = np.where(installed[None], np.minimum(cb._count[None] + np.arange(n)[:, None], cb.max_new), 0)
+    slots = cb.scratch + np.maximum(g - 1, 0)
+    uniform = np.zeros((n, cb.slots), np.float32)
+    for i in np.flatnonzero(installed):
+        uniform[:, i] = cb._draws[i].random(n, dtype=np.float32)
+    s, cfg, rows = cb.state, cb.model.cfg, cb._rows
+    eos = cfg.eos_id
+    for i in range(n):
+        write_dev, u = torch.from_numpy(slots[i]), torch.from_numpy(uniform[i])
+        live = s.active & ~s.done
+        if cb.use_fused:
+            y = ds.fused_decode_step(s.tok_emb[:, 0].contiguous(), cb.fused_weights, s.kv, s.mask, slots[i].tolist(),
+                                     s.kv_scales, num_heads=cfg.num_heads, plan_sweep=cb.plan_sweep)[0]
+            s.mask[rows, write_dev] = torch.maximum(s.mask[rows, write_dev], live.float())
+            logits = F.linear(y, cb.head)
+        else:
+            s.mask[rows, write_dev] = torch.maximum(s.mask[rows, write_dev], live.float())
+            logits = cb.model.decode_step(s.tok_emb, *cb._kv_halves, s.mask > 0, write_dev)
+        logits[:, eos] = torch.where(s.gen_count < EOS_MASK_WARMUP_STEPS, float("-inf"), logits[:, eos])
+        argmax_is_eos = logits.argmax(-1) == eos
+        tok = sample_token_rows(logits, s.presence, s.top_k, s.top_p, s.temperature, s.rep_penalty, u)
+        newly_done = live & (argmax_is_eos | (tok == eos) | (s.gen_count >= cb.max_new))
+        keep = live & ~newly_done
+        tok = torch.where(keep, tok, 0)
+        write_pos = torch.clamp_max(s.gen_count, cb.max_new - 1)
+        s.tokens[rows, write_pos] = torch.where(keep, tok, s.tokens[rows, write_pos])
+        s.lengths += keep
+        s.done |= newly_done
+        s.presence[rows, tok] |= live
+        pos = torch.clamp(s.prompt_lens + s.gen_count, 0, cfg.max_len - 1)
+        s.tok_emb.copy_(torch.where(live[:, None, None], cb.model.embed_audio(tok[:, None], pos[:, None]), s.tok_emb))
+        s.gen_count += keep
+    cb._count = np.where(installed, np.minimum(cb._count + n, cb.max_new), 0)
+    cb.steps_run += n
+
+
+# greedy and sampled rows, each request with its own seed
+TAIL_MIX = [dict(top_k=1), dict(top_k=5, temperature=1.0), dict(top_k=15, temperature=0.7, top_p=0.9),
+            dict(top_k=5, temperature=0.7), dict(top_k=1, repetition_penalty=1.0)]
+
+
+def _mixed_tokens(cb, n, max_new):
+    """Five requests of mixed sampling through a 2-slot pool (joins,
+    evictions and reinstalls), drained in segments of n."""
+    rids = [cb.submit(*_mk_request(80 + i, tx=6 + i), seed=100 + i, **kw) for i, kw in enumerate(TAIL_MIX)]
+    got = cb.drain(n=n)
+    return [got[r] for r in rids]
+
+
+@pytest.mark.parametrize("use_fused", [False, True])
+@pytest.mark.parametrize("n", [1, 7, 25])
+def test_split_step_keeps_tokens(models, use_fused, n):
+    """K1 (its twin here) and the tail over the staged write slots and
+    uniforms give the tokens of the step before the split, greedy and
+    sampled, bit for bit."""
+    _, _, m = models
+    max_new = 20
+    cb = _pool(m, 2, max_new, use_fused=use_fused)
+    ref = _pool(m, 2, max_new, use_fused=use_fused)
+    ref._segment = lambda k: _reference_segment(ref, k)
+    got, want = _mixed_tokens(cb, n, max_new), _mixed_tokens(ref, n, max_new)
+    assert [len(t) for t in got] == [len(t) for t in want] and any(len(t) > 1 for t in got)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert cb.steps_run == ref.steps_run
+
+
+def test_cpu_pool_captures_no_graph(models):
+    """A pool on the CPU runs its tail eagerly: no capture, and each segment
+    stamps `pool.graph_steps` with 0 inside its span."""
+    _, _, m = models
+    for use_fused in (False, True):
+        cb = _pool(m, 2, 12, use_fused=use_fused)
+        t_from = time.perf_counter_ns()
+        _mixed_tokens(cb, 4, 12)
+        snap = recorder().snapshot()
+        counts = snap.counts_named("pool.graph_steps")
+        t = counts["t"][counts["t"] >= t_from]
+        segments = _since(snap.spans_named("pool.segment"), t_from)
+        assert cb.graph_captures == 0 and not cb._graphable()
+        assert _since_counts(snap, "pool.graph_steps", t_from) == [0] * cb._segments_run == [0] * len(segments["seq"])
+        assert ((segments["t0"] <= t) & (t <= segments["t1"])).all()
+
+
+class _EagerGraph:
+    """A stand-in for the tail's CUDA graph on the CPU: the capture runs the
+    tail once, as the real capture's warm-up does (the step's own work),
+    and each replay runs it again."""
+
+    def __init__(self, tail, device):
+        self.tail = tail
+        tail()
+
+    def replay(self):
+        self.tail()
+
+
+def test_replayed_tail_keeps_tokens(models, monkeypatch):
+    """With the graph's place taken by a stand-in that reruns the tail, the
+    pool captures once at its first step, counts every later step as a
+    replay, and gives the eager pool's tokens: the tail advances its own
+    step index. Its staged buffers hold max_new steps: a longer segment
+    keeps them, and the graph, and the tokens. A profiler running changes
+    nothing: the steps still replay."""
+    _, _, m = models
+    max_new = 20
+    want = _mixed_tokens(_pool(m, 2, max_new, use_fused=True), 7, max_new)
+    monkeypatch.setattr(cont, "_TailGraph", _EagerGraph)
+    monkeypatch.setattr(ContinuousBatcher, "_graphable", lambda self: True)
+    cb = _pool(m, 2, max_new, use_fused=True)
+    t_from = time.perf_counter_ns()
+    got = _mixed_tokens(cb, 7, max_new)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert cb.graph_captures == 1
+    assert sum(_since_counts(recorder().snapshot(), "pool.graph_steps", t_from)) == cb.steps_run - 1
+    longer = _mixed_tokens(cb, 25, max_new)
+    for a, b in zip(longer, _mixed_tokens(_pool(m, 2, max_new, use_fused=True), 25, max_new)):
+        np.testing.assert_array_equal(a, b)
+    assert cb.graph_captures == 1 and cb._slots_dev.shape == (max_new, 2)
+    t_from = time.perf_counter_ns()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        cb.submit(*_mk_request(91))
+        cb.step(5)
+    assert _since_counts(recorder().snapshot(), "pool.graph_steps", t_from) == [5] and cb.graph_captures == 1
+
+
+def test_step_output_buffer(models):
+    """fused_decode_step writes its hidden state into `out` where given and
+    returns it: equal to a call without it; `out` may not be the input."""
+    _, _, m = models
+    cb = _pool(m, 2, 12, use_fused=True)
+    cb.submit(*_mk_request(21))
+    cb.step(3)
+    s = cb.state
+    args = (s.tok_emb[:, 0].contiguous(), cb.fused_weights)
+    want, kv_want = ds.fused_decode_step(*args, s.kv.clone(), s.mask, [20, 16], num_heads=CFG["num_heads"])
+    out = torch.full_like(want, float("nan"))
+    got, kv_got = ds.fused_decode_step(*args, s.kv.clone(), s.mask, [20, 16], num_heads=CFG["num_heads"], out=out)
+    assert got is out and torch.equal(got, want) and torch.equal(kv_got, kv_want)
+    with pytest.raises(ValueError, match="must not be x"):
+        ds.fused_decode_step(args[0], cb.fused_weights, s.kv, s.mask, [20, 16], num_heads=CFG["num_heads"], out=args[0])
+    with pytest.raises(ValueError, match="out: shape"):
+        ds.fused_decode_step(*args, s.kv, s.mask, [20, 16], num_heads=CFG["num_heads"], out=out[:1])
 
 
 # -- sampling -------------------------------------------------------------
