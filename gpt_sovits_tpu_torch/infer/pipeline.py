@@ -43,7 +43,10 @@ padded shapes are kept so that both packages run the same computation.
 `run`'s phases are the recorder's `phase.<name>` spans with the run's
 request id (utils/metrics.py PhaseTimer); the batched v3/v4 branch adds a
 `v3.encp` span a segment, `v3.assemble` (the chunk plan and assembly) and
-`v3.fetch` (the int16 copy and SOLA); `generate` and `cfm_inference` take
+`v3.fetch` (the int16 copy and SOLA); every vocoder launch of v3/v4 is a
+`vocoder.call` span (attributes: the mel's frames and rows), and AP-BWE an
+`apbwe.segment` span a segment, with `apbwe.fetch` (the copy back) inside
+it beside super_resolve's own spans; `generate` and `cfm_inference` take
 their own (models/t2s.py, models/v3.py).
 """
 
@@ -84,6 +87,7 @@ from gpt_sovits_tpu_torch.utils.metrics import PhaseTimer, next_request_id, reco
 
 BERT_DIM = 1024
 _REC = recorder()
+_VOC_CALL, _SR_SEGMENT, _SR_FETCH = (_REC.intern(n) for n in ("vocoder.call", "apbwe.segment", "apbwe.fetch"))
 
 
 def _split_batches(sorted_lens: list, batch_size: int, threshold: float) -> list[list[int]]:
@@ -781,8 +785,17 @@ class TTSPipeline:
         """The launch stage's second half (pipeline.py:1101-1111): one
         vocoder call, int16 on the device, cut to the real chunks."""
         mel_long, feat_lens, bs, padding_len, chunk_len, overlap, upsample = state
-        wav = _wav_to_i16(self._voc(denorm_spec(mel_long).to(self._voc_dtype)))[0, : bs * chunk_len * upsample, 0]
+        wav = _wav_to_i16(self._vocoder(denorm_spec(mel_long)))[0, : bs * chunk_len * upsample, 0]
         return wav, feat_lens, bs, padding_len, chunk_len, overlap, upsample
+
+    def _vocoder(self, mel):
+        """One vocoder launch on a (rows, frames, M) mel in the vocoder's
+        dtype, recorded as a `vocoder.call` span (frames, rows): the host's
+        time to issue it."""
+        call = _REC.begin(_VOC_CALL)
+        out = self._voc(mel.to(self._voc_dtype))
+        _REC.end(call, mel.shape[1], mel.shape[0])
+        return out
 
     def _v3_fetch(self, state):
         """Fetch stage: int16 off the device, SOLA crossfade, one clip per
@@ -806,8 +819,16 @@ class TTSPipeline:
         the `apbwe` phase."""
         if not self._super_sampling_on(super_sampling):
             return wavs
+        out = []
         with timer.phase("apbwe"):
-            return [super_resolve(self.v3.sr_model, w[None], self.v3.out_sr)[0][0].cpu().numpy() for w in wavs]
+            for w in wavs:
+                seg = _REC.begin(_SR_SEGMENT)
+                wav = super_resolve(self.v3.sr_model, w[None], self.v3.out_sr)[0][0]
+                fetch = _REC.begin(_SR_FETCH)
+                out.append(wav.cpu().numpy())
+                _REC.end(fetch)
+                _REC.end(seg)
+        return out
 
     # ------------------------------------------------------------------
     # v3/v4: the serial rolling-reference branch (pipeline.py:953-1019)
@@ -876,5 +897,5 @@ class TTSPipeline:
         t_pad = -mel.shape[1] % 256
         if t_pad:
             mel = torch.cat([mel, mel[:, -1:].expand(-1, t_pad, -1)], dim=1)
-        wav = _wav_to_i16(self._voc(mel.to(self._voc_dtype)))[0, : total * upsample, 0]
+        wav = _wav_to_i16(self._vocoder(mel))[0, : total * upsample, 0]
         return wav.cpu().numpy().astype(np.float32) / 32767.0

@@ -22,6 +22,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from gpt_sovits_tpu_torch.dsp.audio_io import resample
+from gpt_sovits_tpu_torch.utils.metrics import recorder
+
+_REC = recorder()
+_RESAMPLE, _LAUNCH, _SAMPLES_OUT = (_REC.intern(n) for n in ("apbwe.resample", "apbwe.launch", "apbwe.samples_out"))
 
 
 @dataclass(frozen=True)
@@ -107,11 +111,22 @@ def super_resolve(model: APNetBWE, audio, orig_sr: int):
     """(B, L) waveform at orig_sr (numpy or tensor) -> ((B, L') f32 tensor
     at hr_sampling_rate on the model's device, hr_sampling_rate)
     (tools/audio_sr.py:40): host resampling to the high rate, STFT, the
-    model, iSTFT."""
+    model, iSTFT.
+
+    Recorded (utils/metrics.py): an `apbwe.resample` span (the host
+    resampling), an `apbwe.launch` span (the upload, STFT, model and iSTFT
+    issued to the device; no sync) and the `apbwe.samples_out` counter (the
+    output's samples, all rows)."""
     c = model.cfg
     p = next(model.parameters())
+    span = _REC.begin(_RESAMPLE)
     audio = audio.detach().cpu().numpy() if isinstance(audio, torch.Tensor) else np.asarray(audio)
     up = np.stack([resample(np.asarray(a, np.float32), orig_sr, c.hr_sampling_rate) for a in audio])
+    _REC.end(span)
+    span = _REC.begin(_LAUNCH)
     mag, pha = amp_pha_stft(torch.from_numpy(up).to(p.device), c.n_fft, c.hop_size, c.win_size)
     mag_wb, pha_wb = model(mag.to(p.dtype), pha.to(p.dtype))
-    return amp_pha_istft(mag_wb, pha_wb, c.n_fft, c.hop_size, c.win_size), c.hr_sampling_rate
+    out = amp_pha_istft(mag_wb, pha_wb, c.n_fft, c.hop_size, c.win_size)
+    _REC.end(span)
+    _REC.count(_SAMPLES_OUT, out.numel())
+    return out, c.hr_sampling_rate

@@ -9,6 +9,7 @@ import re
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 import pytest
@@ -236,3 +237,38 @@ def test_cfm_inference_records_each_euler_step(n_steps):
     assert len(calls["seq"]) == 1 and list(calls["attr"][0, :3]) == [b, t, n_steps]
     assert list(steps["attr"][:, 0]) == list(range(n_steps)) and (steps["parent"] == calls["seq"][0]).all()
     assert calls["t0"][0] <= steps["t0"].min() and steps["t1"].max() <= calls["t1"][0]
+
+
+def test_vocoder_call_and_apbwe_segments_are_recorded():
+    """`TTSPipeline._vocoder` records a `vocoder.call` span (the mel's
+    frames and rows); `_apbwe` an `apbwe.segment` span a segment, inside it
+    `super_resolve`'s `apbwe.resample` and `apbwe.launch` and the pipeline's
+    `apbwe.fetch`, in that order, and `apbwe.samples_out` counts each
+    segment's output samples. The pipeline is built around the two models
+    alone (no S1, S2 or reference)."""
+    from gpt_sovits_tpu_torch.infer.pipeline import TTSPipeline
+    from gpt_sovits_tpu_torch.models.apbwe import APBWEConfig, APNetBWE
+    from gpt_sovits_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig
+
+    torch.manual_seed(0)
+    pipe = object.__new__(TTSPipeline)
+    pipe._voc = BigVGAN(BigVGANConfig(upsample_initial_channel=64), use_kernel=False).eval()
+    pipe._voc_dtype = torch.float32
+    pipe.v3 = types.SimpleNamespace(sr_model=APNetBWE(APBWEConfig(channels=16, layers=1)).eval(), out_sr=24000)
+    t_from = time.perf_counter_ns()
+    with torch.no_grad():
+        wav = pipe._vocoder(torch.randn(2, 5, 100))
+    out = pipe._apbwe([np.zeros(2400, np.float32), np.full(1200, 0.1, np.float32)], None, metrics.PhaseTimer())
+    snap = metrics.recorder().snapshot()
+    voc = _since(t_from, snap.spans_named("vocoder.call"))
+    assert wav.shape == (2, 5 * 256, 1) and list(voc["attr"][0]) == [5, 2, 0, 0] and len(voc["seq"]) == 1
+    segs = _since(t_from, snap.spans_named("apbwe.segment"))
+    assert len(segs["seq"]) == 2
+    for k, seq in enumerate(segs["seq"]):
+        kids = [_since(t_from, snap.spans_named(n)) for n in ("apbwe.resample", "apbwe.launch", "apbwe.fetch")]
+        rows = [np.flatnonzero(c["parent"] == seq) for c in kids]
+        assert [len(r) for r in rows] == [1, 1, 1]
+        starts = [int(c["t0"][r[0]]) for c, r in zip(kids, rows)]
+        assert segs["t0"][k] <= starts[0] <= starts[1] <= starts[2] <= segs["t1"][k]
+    samples = snap.counts_named("apbwe.samples_out")
+    assert list(samples["value"][samples["t"] >= t_from]) == [len(w) for w in out] == [4800, 2400]
